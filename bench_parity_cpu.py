@@ -1,11 +1,10 @@
 """CPU-JAX half of the greedy text-parity proof (bench.py::bench_parity).
 
 Loads the overfit flagship params + synthetic utterances from an .npz, runs
-the PLAIN MODULE path (every fused Pallas fast path is backend-gated off on
-CPU: models/layers.py::_on_tpu, ctc_model.py::argmax_ids) and prints the
-greedy texts as one JSON line. bench.py diffs them against the TPU-fused
-texts — BASELINE's "decode text parity (greedy), bit-for-bit at text level,
-TPU & CPU-JAX path".
+the same model on XLA:CPU and prints the greedy texts as one JSON line.
+bench.py diffs them against the texts decoded on the card — BASELINE's
+"decode text parity (greedy), bit-for-bit at text level, accelerator &
+CPU-JAX path". bench.py starts it with JAX_PLATFORMS=cpu.
 """
 
 import json
@@ -20,10 +19,10 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    from jiao_liao_speech_recognition_tpu.decode.ctc import ctc_greedy_decode
-    from jiao_liao_speech_recognition_tpu.frontend.features import featurize_batch
-    from jiao_liao_speech_recognition_tpu.models.ctc_model import CTCEncoderModel
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.decode.ctc import ctc_greedy_decode
+    from jiao_liao_asr.frontend.features import featurize_batch
+    from jiao_liao_asr.models.ctc_model import CTCEncoderModel
+    from jiao_liao_asr.utils.config import (
         CTCModelConfig,
         FrontendConfig,
     )

@@ -1,34 +1,24 @@
-"""Measure the int8 serving quantization's text-accuracy cost on the chip.
+"""Measure the int8 serving quantization's text-accuracy cost.
 
-BASELINE's quality bar is text-level; docs/PERFORMANCE.md's int8 serving
-numbers (transcribe/evaluate --int8) needed a measured CER/WER cost, not
-just a throughput table. This script produces one, end to end through the
-production CLI:
+BASELINE's quality bar is text-level, so int8 serving (transcribe/evaluate
+--int8) needs a measured CER/WER cost, not just a throughput table. This
+script produces one, end to end through the production CLI:
 
 1. synthesize a 24-utterance tonal corpus (3 s each, char texts);
 2. train a small whisper (d=128, 2+2 layers) to overfitting on it with
-   `cli train` (600 steps, ~25 steps/s on the v5e; final loss ~0.06);
+   `cli train` (600 steps; final loss ~0.06);
 3. `cli evaluate` the checkpoint four ways: {bf16, --int8} x {batch 4,
    batch 16} — batch 16 engages the head-major layout, whose quantized
    serving path ALSO stores the self-attention KV caches int8
    (models/whisper.init_cache), so both int8 cache regimes are covered.
 
-Measured 2026-08-18 (v5e, this script verbatim):
-
-    | batch | bf16 CER/WER | int8 CER/WER |
-    |-------|--------------|--------------|
-    | 4     | 0.0 / 0.0    | 0.0 / 0.0    |
-    | 16    | 0.0 / 0.0    | 0.0 / 0.0    |
-
-i.e. the full int8 serving step (weights + cross KV + self KV + logits)
-reproduced every reference transcript exactly. On a model that decodes
-near ties the cost may be nonzero — rerun this script against any real
-checkpoint by pointing --manifest/--checkpoint at it.
+On a model that decodes near ties the cost may be nonzero — rerun this
+script against any real checkpoint by pointing --manifest/--checkpoint at
+it.
 
 Usage: python examples/int8_quality.py [--workdir /tmp/w8q] [--steps 600]
        add --assert to fail (exit 1) unless int8 CER/WER == bf16 CER/WER at
-       every batch size — re-checks the published zero-cost claim so the
-       docs number can't silently rot.
+       every batch size.
 """
 
 import json
@@ -52,6 +42,9 @@ def sh(args):
 
 
 def main():
+    from jiao_liao_asr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     workdir, steps = "/tmp/w8q", 600
     for i, a in enumerate(sys.argv):
         if a == "--workdir" and i + 1 < len(sys.argv):
@@ -61,11 +54,11 @@ def main():
 
     import numpy as np
 
-    from jiao_liao_speech_recognition_tpu.data import (
+    from jiao_liao_asr.data import (
         ManifestRow,
         write_manifest,
     )
-    from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
+    from jiao_liao_asr.frontend.audio_io import write_wav
 
     os.makedirs(workdir, exist_ok=True)
     manifest = os.path.join(workdir, "train.jsonl")
@@ -87,11 +80,11 @@ def main():
     write_manifest(rows, manifest)
 
     ckpt = os.path.join(workdir, "ckpt")
-    cli = [sys.executable, "-m", "jiao_liao_speech_recognition_tpu.cli"]
+    cli = [sys.executable, "-m", "jiao_liao_asr.cli"]
     if not os.path.isdir(os.path.join(ckpt, "final")):
         print(f"training {steps} steps ...", flush=True)
         sh(cli + [
-            "train", "--config", "configs/adapter_finetune.yaml",
+            "train", "--config", "configs/adapter_finetune.json",
             "model_family=whisper", f"data.train_manifest={manifest}",
             "data.batch_size=8", "data.bucket_boundaries_seconds=[3.0]",
             "data.max_text_len=12", "frontend.chunk_seconds=3.0",
@@ -99,7 +92,7 @@ def main():
             "whisper.decoder_layers=2", "whisper.num_heads=4",
             "whisper.mlp_dim=256", "whisper.max_source_positions=150",
             "whisper.max_target_positions=24",
-            "whisper.use_flash_attention=false", "whisper.adapter.kind=none",
+            "whisper.adapter.kind=none",
             "whisper.dropout=0.0", "train.train_adapters_only=false",
             f"train.optimizer.total_steps={steps}",
             "train.optimizer.learning_rate=3e-3",

@@ -25,7 +25,7 @@ Expected shape of the result (pinned bit-exactly at random init by
 tests/test_limited_context.py): the matched model streams identically to
 its offline decode once lookahead covers its right context; the offline
 model loses accuracy streamed because its training never bounded its
-context. Measured numbers live in docs/PERFORMANCE.md.
+context.
 
 Usage: python examples/streaming_quality.py [--workdir /tmp/jl_sq3] [--steps 2000]
 (--assert: exit 1 unless the matched model's streamed text is bit-exact
@@ -54,6 +54,9 @@ def sh(args):
 
 
 def main():
+    from jiao_liao_asr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     workdir, steps = "/tmp/jl_sq3", 2000
     for i, a in enumerate(sys.argv):
         if a == "--workdir" and i + 1 < len(sys.argv):
@@ -63,8 +66,8 @@ def main():
 
     import numpy as np
 
-    from jiao_liao_speech_recognition_tpu.data import ManifestRow, write_manifest
-    from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
+    from jiao_liao_asr.data import ManifestRow, write_manifest
+    from jiao_liao_asr.frontend.audio_io import write_wav
 
     os.makedirs(workdir, exist_ok=True)
     manifest = os.path.join(workdir, "train.jsonl")
@@ -96,16 +99,15 @@ def main():
         refs.append(text)
     write_manifest(rows, manifest)
 
-    cli = [sys.executable, "-m", "jiao_liao_speech_recognition_tpu.cli"]
+    cli = [sys.executable, "-m", "jiao_liao_asr.cli"]
     common = cli + [
-        "train", "--config", "configs/adapter_finetune.yaml",
+        "train", "--config", "configs/adapter_finetune.json",
         f"data.train_manifest={manifest}",
         "data.batch_size=8", "data.bucket_boundaries_seconds=[3.2]",
         "frontend.chunk_seconds=3.2", "frontend.whisper_norm=false",
         "ctc_model.d_model=128", "ctc_model.num_layers=2",
         "ctc_model.num_heads=4", "ctc_model.mlp_dim=256",
-        "ctc_model.conv_channels=64", "ctc_model.use_flash_attention=false",
-        "ctc_model.adapter.kind=none", "ctc_model.dropout=0.0",
+        "ctc_model.conv_channels=64", "ctc_model.adapter.kind=none", "ctc_model.dropout=0.0",
         "train.train_adapters_only=false",
         f"train.optimizer.total_steps={steps}",
         "train.optimizer.learning_rate=3e-3", "train.optimizer.warmup_steps=50",
@@ -153,9 +155,9 @@ def main():
                 f"train.metrics_path={metrics}",
             ])
 
-    from jiao_liao_speech_recognition_tpu.api import load
-    from jiao_liao_speech_recognition_tpu.evals import corpus_cer
-    from jiao_liao_speech_recognition_tpu.serve.streaming import (
+    from jiao_liao_asr.api import load
+    from jiao_liao_asr.evals import corpus_cer
+    from jiao_liao_asr.serve.streaming import (
         StreamingConfig,
         StreamingTranscriber,
     )

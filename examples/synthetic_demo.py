@@ -43,8 +43,8 @@ def synth_wave(text: str, base_hz: float, sr: int = 16000, per_char: float = 0.2
 
 
 def make_corpus(outdir: Path, name: str, base_hz: float, n: int, seed: int):
-    from jiao_liao_speech_recognition_tpu.data import ManifestRow, write_manifest
-    from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
+    from jiao_liao_asr.data import ManifestRow, write_manifest
+    from jiao_liao_asr.frontend.audio_io import write_wav
 
     rng = np.random.RandomState(seed)
     rows = []
@@ -71,9 +71,8 @@ def main() -> None:
     )
     ap.add_argument(
         "--cpu", action="store_true",
-        help="force the CPU backend (the environment may pin a TPU platform "
-             "via site config; only jax.config.update sticks, env vars are "
-             "ignored) — use when the chip is busy or absent",
+        help="force the CPU backend (e.g. while another process holds "
+             "the card)",
     )
     ap.add_argument(
         "--assert-ordering", action="store_true",
@@ -83,9 +82,8 @@ def main() -> None:
              "kind reaches CER <= 0.5 (large margin under the ~0.93 "
              "zero-shot). The paper's exact wf/att-vs-bottleneck ordering "
              "(README.md:1) is NOT asserted: the synthetic tone-shift task "
-             "is too easy to discriminate adapter families (see "
-             "docs/PERFORMANCE.md) — the per-family CERs are recorded as "
-             "tracked data instead",
+             "is too easy to discriminate adapter families — the "
+             "per-family CERs are recorded as tracked data instead",
     )
     args = ap.parse_args()
 
@@ -94,13 +92,17 @@ def main() -> None:
 
         jax.config.update("jax_platforms", "cpu")
 
+    from jiao_liao_asr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     out = Path(args.outdir)
     out.mkdir(parents=True, exist_ok=True)
 
-    from jiao_liao_speech_recognition_tpu.data.manifest import read_manifest
-    from jiao_liao_speech_recognition_tpu.train.engine import evaluate_manifest
-    from jiao_liao_speech_recognition_tpu.train.schedules import run_stages
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.data.manifest import read_manifest
+    from jiao_liao_asr.train.engine import evaluate_manifest
+    from jiao_liao_asr.train.schedules import run_stages
+    from jiao_liao_asr.utils.config import (
         AdapterConfig,
         CTCModelConfig,
         DataConfig,
@@ -173,9 +175,9 @@ def main() -> None:
         # backbone leaves over (fresh adapters keep their identity init).
         import jax
 
-        from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
+        from jiao_liao_asr.models.bundle import ModelBundle
 
-        from jiao_liao_speech_recognition_tpu.models.adapters import param_is_adapter
+        from jiao_liao_asr.models.adapters import param_is_adapter
 
         fresh = ModelBundle._init_params(cfg2)
         p1_map = {
@@ -197,16 +199,15 @@ def main() -> None:
 
     # quality-protocol ordering (the one claim the reference publishes,
     # README.md:1): summary line + optional hard assertion so the claim
-    # direction has a standing per-round regression check (r4 verdict
-    # item 8). Fully seeded above -> deterministic for a given code version.
+    # direction has a standing regression check. Fully seeded above ->
+    # deterministic for a given code version.
     if args.compare_adapters:
         zs = zero_shot["eval_cer"]
         cers = {k: v["eval_cer"] for k, v in adapted_by_kind.items()}
         transfer_helps = all(c < zs for c in cers.values())
         all_adapt = max(cers.values()) <= 0.5
         # informational, NOT load-bearing for ok: the toy task can't
-        # discriminate adapter families (docs/PERFORMANCE.md records
-        # bottleneck occasionally beating wf here)
+        # discriminate adapter families (bottleneck occasionally beats wf)
         novel_not_worse = min(cers["wf"], cers["att"]) <= cers["bottleneck"]
         summary = {
             "quality_ordering": {

@@ -1,7 +1,7 @@
 // Batched CTC prefix beam search over device-pruned top-k frame posteriors.
 //
-// TPU-native division of labor (SURVEY.md §7 hard-part 3, C14): the chip
-// runs encoder + log_softmax + per-frame top-k (MXU/VPU work), the host
+// Division of labor (SURVEY.md §7 hard-part 3, C14): the chip
+// runs encoder + log_softmax + per-frame top-k (device work), the host
 // runs the inherently ragged beam bookkeeping — this file — multithreaded
 // across utterances. Transfer per frame is K+1 floats instead of the full
 // |V| row, so a 128 x 30 s batch ships ~50 MB rather than ~1.6 GB.
@@ -16,7 +16,7 @@
 // proposal set, so any token a beam could extend with is present anyway.
 //
 // Build: make -C native   (-> build/libbeam.so, ctypes-loaded by
-// jiao_liao_speech_recognition_tpu/utils/native_ext.py)
+// jiao_liao_asr/utils/native_ext.py)
 
 #include <algorithm>
 #include <cmath>

@@ -1,5 +1,5 @@
 // C++ BPE merge-loop runtime: the hot path of byte-level BPE encoding.
-// TPU-native replacement for the reference's Rust `tokenizers` runtime
+// Replacement for the reference's Rust `tokenizers` runtime
 // (/root/reference/requirements.txt:74; SURVEY.md N8/N9). Python owns file
 // parsing and pretokenization; this kernel applies lowest-rank-first pair
 // merges over vocab ids. Merge rules arrive as packed (left<<32|right) keys

@@ -1,8 +1,8 @@
 // C++ edit-distance kernel for corpus-scale CER/WER.
-// TPU-native replacement for the reference's rapidfuzz backend
+// Replacement for the reference's rapidfuzz backend
 // (/root/reference/requirements.txt:56; SURVEY.md N10). Banded two-row
 // Levenshtein over int32 token ids; bound via ctypes
-// (jiao_liao_speech_recognition_tpu/utils/native_ext.py).
+// (jiao_liao_asr/utils/native_ext.py).
 
 #include <algorithm>
 #include <cstdint>

@@ -1,5 +1,5 @@
 // C++ host FLAC decoder: native FLAC (free lossless audio codec) frames ->
-// mono float32 PCM. TPU-native replacement for the reference's
+// mono float32 PCM. Replacement for the reference's
 // libsndfile/audioread FLAC path (/root/reference/requirements.txt:8,69;
 // SURVEY.md N5 "chunked WAV/FLAC -> host buffers"). Subset of the format
 // (the parts every real encoder emits):

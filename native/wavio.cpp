@@ -1,5 +1,5 @@
 // C++ host WAV decoder: chunked RIFF/WAVE parsing -> mono float32 PCM.
-// TPU-native replacement for the reference's libsndfile/audioread decode
+// Replacement for the reference's libsndfile/audioread decode
 // (/root/reference/requirements.txt:8,69; SURVEY.md N5). Supports PCM
 // 8/16/24/32-bit and IEEE float32/float64, multi-channel mixdown. Bound via
 // ctypes; the Python stdlib `wave` path is the fallback.

@@ -20,7 +20,7 @@ import numpy as np
 sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
-from jiao_liao_speech_recognition_tpu.utils import native_ext  # noqa: E402
+from jiao_liao_asr.utils import native_ext  # noqa: E402
 
 
 def mutate(data: bytes, rng: np.random.RandomState) -> bytes:

@@ -1,7 +1,7 @@
 """Subprocess worker for tests/test_multihost.py: one SPMD process.
 
 Runs the PRODUCTION train_loop (mesh build -> shard_state -> per-process
-data sharding -> jitted step -> orbax checkpoint) on an 8-device global mesh
+data sharding -> jitted step -> npz checkpoint) on an 8-device global mesh
 split across `nproc` processes x (8/nproc) local CPU devices each, and
 prints per-step losses as JSON on the last line. The same script with
 nproc=1 is the single-process reference run the test compares against
@@ -35,7 +35,7 @@ def main() -> None:
 
     jax.config.update("jax_platforms", "cpu")
     if nproc > 1:
-        from jiao_liao_speech_recognition_tpu.parallel.multihost import initialize
+        from jiao_liao_asr.parallel.multihost import initialize
 
         initialize(
             coordinator_address=f"127.0.0.1:{port}",
@@ -44,13 +44,13 @@ def main() -> None:
         )
     assert len(jax.devices()) == 8, f"want 8 global devices, got {len(jax.devices())}"
 
-    from jiao_liao_speech_recognition_tpu.data.manifest import read_manifest
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.train.engine import (
+    from jiao_liao_asr.data.manifest import read_manifest
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.train.engine import (
         build_tokenizer_for,
         train_loop,
     )
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.utils.config import (
         AdapterConfig,
         CTCModelConfig,
         ExperimentConfig,
@@ -65,7 +65,6 @@ def main() -> None:
             num_heads=4,
             mlp_dim=128,
             conv_channels=32,
-            use_flash_attention=False,
             adapter=AdapterConfig(kind="wf", wf_rank=4),
         ),
         mesh=MeshConfig(fsdp_axis=2, model_axis=1),

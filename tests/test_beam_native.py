@@ -5,7 +5,7 @@ the bundle 'beam' strategy dispatch."""
 import numpy as np
 import pytest
 
-from jiao_liao_speech_recognition_tpu.utils import native_ext
+from jiao_liao_asr.utils import native_ext
 
 pytestmark = pytest.mark.skipif(
     not native_ext.native_available("beam"), reason="native beam lib not built"
@@ -22,7 +22,7 @@ def _rand_log_probs(rng, B, T, V, peaked=0.0):
 @pytest.mark.parametrize("beam_size", [1, 4, 8])
 def test_native_matches_host_exact(rng, beam_size):
     """topk >= V-1 -> no pruning on either side -> identical results."""
-    from jiao_liao_speech_recognition_tpu.decode.ctc import (
+    from jiao_liao_asr.decode.ctc import (
         ctc_prefix_beam_search_host,
         ctc_prefix_beam_search_native,
     )
@@ -45,7 +45,7 @@ def test_native_matches_host_exact(rng, beam_size):
 
 def test_native_beam1_equals_greedy_on_peaked(rng):
     """On well-separated frames, beam search must agree with greedy."""
-    from jiao_liao_speech_recognition_tpu.decode.ctc import (
+    from jiao_liao_asr.decode.ctc import (
         ctc_greedy_decode,
         ctc_prefix_beam_search_native,
     )
@@ -60,7 +60,7 @@ def test_native_beam1_equals_greedy_on_peaked(rng):
 
 
 def test_native_threads_deterministic(rng):
-    from jiao_liao_speech_recognition_tpu.decode.ctc import (
+    from jiao_liao_asr.decode.ctc import (
         ctc_prefix_beam_search_native,
     )
 
@@ -76,9 +76,9 @@ def test_native_threads_deterministic(rng):
 def test_bundle_beam_strategy_uses_native(tmp_path, rng, tiny_wav):
     """End-to-end: transcribe with strategy='beam' routes through the C++
     engine (no LM) and returns deterministic text."""
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import (
         CTCModelConfig,
         DecodeConfig,
         ExperimentConfig,
@@ -89,8 +89,7 @@ def test_bundle_beam_strategy_uses_native(tmp_path, rng, tiny_wav):
         model_family="ctc",
         ctc_model=CTCModelConfig(
             vocab_size=len(tok), d_model=64, num_layers=1, num_heads=4,
-            mlp_dim=128, conv_channels=16, use_flash_attention=False,
-        ),
+            mlp_dim=128, conv_channels=16, ),
     )
     cfg.frontend.chunk_seconds = 2.0
     bundle = ModelBundle(
@@ -106,7 +105,7 @@ def test_pruned_beam_matches_exact_on_peaked(rng):
     """prune_logp < 0 drops only negligible-mass candidates: on peaked
     (trained-like) posteriors the pruned search returns the exact result,
     and a blank-dominated corpus exercises the O(beams) fast path."""
-    from jiao_liao_speech_recognition_tpu.decode.ctc import (
+    from jiao_liao_asr.decode.ctc import (
         ctc_prefix_beam_search_native,
     )
 
@@ -127,7 +126,7 @@ def test_pruned_beam_matches_exact_on_peaked(rng):
 
 
 def test_prune_zero_is_noop(rng):
-    from jiao_liao_speech_recognition_tpu.decode.ctc import (
+    from jiao_liao_asr.decode.ctc import (
         ctc_prefix_beam_search_native,
     )
 

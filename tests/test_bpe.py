@@ -7,7 +7,7 @@ import json
 import numpy as np
 import pytest
 
-from jiao_liao_speech_recognition_tpu.data.bpe import (
+from jiao_liao_asr.data.bpe import (
     ByteLevelBPE,
     bytes_to_unicode,
     gpt2_pretokenize,
@@ -88,7 +88,7 @@ def test_pretokenize_matches_gpt2_regex():
 
 
 def test_native_matches_python(tmp_path):
-    from jiao_liao_speech_recognition_tpu.utils import native_ext
+    from jiao_liao_asr.utils import native_ext
 
     if not native_ext.native_available("bpe"):
         pytest.skip("native bpe lib not built")

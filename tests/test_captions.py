@@ -2,7 +2,7 @@
 silence gaps / duration / line length, and both formats carry the exact
 millisecond stamps in their spec's syntax."""
 
-from jiao_liao_speech_recognition_tpu.utils.captions import (
+from jiao_liao_asr.utils.captions import (
     format_srt,
     format_vtt,
     group_cues,
@@ -37,7 +37,7 @@ def test_group_cues_splits_on_gap_duration_and_length():
 
 
 def test_group_words_merges_token_spans():
-    from jiao_liao_speech_recognition_tpu.utils.captions import group_words
+    from jiao_liao_asr.utils.captions import group_words
 
     # "你好" is one jieba/FMM word spanning two tokens; "吗" stays alone
     toks = [_tok("你", 0.0, 0.2), _tok("好", 0.2, 0.4), _tok("吗", 0.5, 0.7)]

@@ -6,12 +6,12 @@ import json
 import numpy as np
 import pytest
 
-from jiao_liao_speech_recognition_tpu import cli
-from jiao_liao_speech_recognition_tpu.data import ManifestRow, write_manifest
-from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
-from jiao_liao_speech_recognition_tpu.utils.config import (
+from jiao_liao_asr import cli
+from jiao_liao_asr.data import ManifestRow, write_manifest
+from jiao_liao_asr.frontend.audio_io import write_wav
+from jiao_liao_asr.utils.config import (
     ExperimentConfig,
-    save_yaml,
+    save_config,
 )
 
 
@@ -26,7 +26,7 @@ def cli_env(tmp_path_factory):
         write_wav(p, wav, 16000)
         rows.append(ManifestRow(str(p), "你好世界", 1.2, "jiaoliao"))
     write_manifest(rows, tmp / "train.jsonl")
-    save_yaml(ExperimentConfig(), str(tmp / "base.yaml"))
+    save_config(ExperimentConfig(), str(tmp / "base.json"))
     return tmp
 
 
@@ -42,7 +42,6 @@ def _overrides(tmp):
         "ctc_model.num_heads=4",
         "ctc_model.mlp_dim=128",
         "ctc_model.conv_channels=32",
-        "ctc_model.use_flash_attention=false",
         "train.optimizer.total_steps=4",
         "train.optimizer.warmup_steps=1",
         "train.optimizer.learning_rate=1e-3",
@@ -55,9 +54,9 @@ def _overrides(tmp):
 
 def test_cli_train_transcribe_evaluate_featurize(cli_env, capsys):
     tmp = cli_env
-    rc = cli.main(["train", "--config", str(tmp / "base.yaml"), *_overrides(tmp)])
+    rc = cli.main(["train", "--config", str(tmp / "base.json"), *_overrides(tmp)])
     assert rc == 0
-    assert (tmp / "ckpt" / "final" / "config.yaml").exists()
+    assert (tmp / "ckpt" / "final" / "config.json").exists()
     capsys.readouterr()
 
     rc = cli.main(["transcribe", str(tmp / "u0.wav"), "--checkpoint", str(tmp / "ckpt" / "final")])
@@ -137,9 +136,9 @@ def test_cli_train_transcribe_evaluate_featurize(cli_env, capsys):
 def test_cli_evaluate_int8_whisper(cli_env, capsys, tmp_path):
     """evaluate --int8 quantizes the whisper serving tree and reports CER/WER
     through the full int8 decode path (weights + KV caches + logit table)."""
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import WhisperConfig
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import WhisperConfig
 
     tmp = cli_env
     cfg = ExperimentConfig(
@@ -173,9 +172,9 @@ def test_cli_evaluate_int8_whisper(cli_env, capsys, tmp_path):
 
 
 def _tiny_whisper_ckpt(tmp_path):
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import WhisperConfig
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import WhisperConfig
 
     cfg = ExperimentConfig(
         model_family="whisper",

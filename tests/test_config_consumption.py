@@ -1,5 +1,5 @@
-"""Every config field must be consumed somewhere (VERDICT r1 weak 5: a
-config that silently ignores values is a correctness trap).
+"""Every config field must be consumed somewhere (a config that silently
+ignores values is a correctness trap).
 
 The static check walks every dataclass field and requires its name to appear
 in non-config source; the behavioral checks prove the previously-dead knobs
@@ -15,7 +15,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.utils import config as C
+from jiao_liao_asr.utils import config as C
 
 PKG = pathlib.Path(C.__file__).resolve().parents[1]
 
@@ -49,11 +49,10 @@ def test_every_config_field_is_consumed():
 
 
 def test_subsample_factor_consumed():
-    from jiao_liao_speech_recognition_tpu.models.ctc_model import CTCEncoderModel
+    from jiao_liao_asr.models.ctc_model import CTCEncoderModel
 
     base = dict(vocab_size=12, d_model=32, num_layers=1, num_heads=2,
-                mlp_dim=64, conv_channels=16, dtype="float32",
-                use_flash_attention=False)
+                mlp_dim=64, conv_channels=16, dtype="float32")
     feats = jnp.zeros((1, 80, 64), jnp.float32)
     for factor, t_out in [(2, 32), (4, 16), (8, 8)]:
         model = CTCEncoderModel(C.CTCModelConfig(subsample_factor=factor, **base))
@@ -67,12 +66,11 @@ def test_subsample_factor_consumed():
 
 
 def test_max_frames_enforced():
-    from jiao_liao_speech_recognition_tpu.models.ctc_model import CTCEncoderModel
+    from jiao_liao_asr.models.ctc_model import CTCEncoderModel
 
     cfg = C.CTCModelConfig(
         vocab_size=12, d_model=32, num_layers=1, num_heads=2, mlp_dim=64,
-        conv_channels=16, dtype="float32", use_flash_attention=False,
-        max_frames=32,
+        conv_channels=16, dtype="float32", max_frames=32,
     )
     model = CTCEncoderModel(cfg)
     with pytest.raises(ValueError, match="max_frames"):
@@ -80,12 +78,11 @@ def test_max_frames_enforced():
 
 
 def test_whisper_max_source_positions_enforced():
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
+    from jiao_liao_asr.models.whisper import WhisperModel
 
     cfg = C.WhisperConfig(
         vocab_size=32, d_model=32, encoder_layers=1, decoder_layers=1,
         num_heads=2, mlp_dim=64, max_source_positions=8, dtype="float32",
-        use_flash_attention=False,
     )
     model = WhisperModel(cfg)
     with pytest.raises(ValueError, match="max_source_positions"):
@@ -98,8 +95,8 @@ def test_whisper_max_source_positions_enforced():
 def test_dialect_weights_mixing(tmp_path, rng):
     """run_experiment's dialect_weights groups rows by manifest dialect tag
     and samples a weighted mixture (verified at the mixer level)."""
-    from jiao_liao_speech_recognition_tpu.data.manifest import Manifest, ManifestRow
-    from jiao_liao_speech_recognition_tpu.data.pipeline import mix_manifests
+    from jiao_liao_asr.data.manifest import Manifest, ManifestRow
+    from jiao_liao_asr.data.pipeline import mix_manifests
 
     rows_a = [ManifestRow(f"a{i}.wav", "甲", 1.0, "jiaoliao") for i in range(10)]
     rows_b = [ManifestRow(f"b{i}.wav", "乙", 1.0, "neighbor") for i in range(10)]

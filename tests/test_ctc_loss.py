@@ -8,7 +8,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.ops.ctc_loss import ctc_loss
+from jiao_liao_asr.ops.ctc_loss import ctc_loss
 
 
 def numpy_ctc_oracle(log_probs, labels, blank=0):

@@ -4,7 +4,7 @@ iterator determinism + resume, multi-dialect mixing."""
 import numpy as np
 import pytest
 
-from jiao_liao_speech_recognition_tpu.data import (
+from jiao_liao_asr.data import (
     BatchIterator,
     CharTokenizer,
     Manifest,
@@ -12,9 +12,9 @@ from jiao_liao_speech_recognition_tpu.data import (
     read_manifest,
     write_manifest,
 )
-from jiao_liao_speech_recognition_tpu.data.pipeline import mix_manifests
-from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
-from jiao_liao_speech_recognition_tpu.utils.config import DataConfig
+from jiao_liao_asr.data.pipeline import mix_manifests
+from jiao_liao_asr.frontend.audio_io import write_wav
+from jiao_liao_asr.utils.config import DataConfig
 
 TEXTS = ["今天天气很好", "我爱北京", "胶辽官话", "语音识别测试"]
 
@@ -101,7 +101,7 @@ def test_mix_manifests():
 
 
 def test_prefetch_iterator_matches_and_resumes(corpus):
-    from jiao_liao_speech_recognition_tpu.data.pipeline import PrefetchIterator
+    from jiao_liao_asr.data.pipeline import PrefetchIterator
 
     m = read_manifest(corpus)
     tok = CharTokenizer.build(m.texts())
@@ -121,17 +121,16 @@ def test_prefetch_iterator_matches_and_resumes(corpus):
 
 
 def test_config_yaml_roundtrip_and_overrides(tmp_path):
-    from jiao_liao_speech_recognition_tpu.utils.config import (
-        ExperimentConfig, apply_overrides, load_yaml, save_yaml,
+    from jiao_liao_asr.utils.config import (
+        ExperimentConfig, apply_overrides, load_config, save_config,
     )
 
     cfg = ExperimentConfig()
-    save_yaml(cfg, str(tmp_path / "c.yaml"))
-    back = load_yaml(str(tmp_path / "c.yaml"))
+    save_config(cfg, str(tmp_path / "c.json"))
+    back = load_config(str(tmp_path / "c.json"))
     assert back == cfg
 
-    # numeric coercion: PyYAML parses "3e-3" as str (no dot) — override
-    # parsing must coerce it (found driving the CLI on TPU)
+    # override values parse as JSON: "3e-3" is a float, lists are tuples
     cfg2 = apply_overrides(cfg, ["train.optimizer.learning_rate=3e-3",
                                  "ctc_model.num_layers=6",
                                  "data.bucket_boundaries_seconds=[2.0, 4.0]"])
@@ -152,16 +151,16 @@ def test_prefetch_propagates_worker_exception(tmp_path):
     import numpy as np
     import pytest
 
-    from jiao_liao_speech_recognition_tpu.data.manifest import (
+    from jiao_liao_asr.data.manifest import (
         Manifest,
         ManifestRow,
     )
-    from jiao_liao_speech_recognition_tpu.data.pipeline import (
+    from jiao_liao_asr.data.pipeline import (
         BatchIterator,
         PrefetchIterator,
     )
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.utils.config import DataConfig
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.utils.config import DataConfig
 
     rows = [
         ManifestRow(audio=str(tmp_path / "missing.wav"), text="你好", duration=1.0)
@@ -182,7 +181,7 @@ def test_int16_wire_format_matches_float32(corpus):
     reproduce the float32 path bit-for-bit for 16-bit-sourced WAV."""
     import jax.numpy as jnp
 
-    from jiao_liao_speech_recognition_tpu.frontend.features import dequantize_pcm
+    from jiao_liao_asr.frontend.features import dequantize_pcm
 
     m = read_manifest(corpus)
     tok = CharTokenizer.build(m.texts())

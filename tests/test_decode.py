@@ -7,7 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.decode.ctc import (
+from jiao_liao_asr.decode.ctc import (
     ctc_greedy_collapse,
     ctc_greedy_decode,
     ctc_prefix_beam_search,
@@ -86,11 +86,11 @@ def test_beam_size_one_close_to_greedy():
 
 
 def test_host_beam_matches_device_beam(rng):
-    from jiao_liao_speech_recognition_tpu.decode.ctc import (
+    from jiao_liao_asr.decode.ctc import (
         ctc_prefix_beam_search_host,
     )
 
-    from jiao_liao_speech_recognition_tpu.ops.ctc_loss import ctc_loss
+    from jiao_liao_asr.ops.ctc_loss import ctc_loss
 
     for _ in range(5):
         lp = _rand_log_probs(rng, 2, 10, 5, peaky=1.0)  # flat distributions
@@ -120,7 +120,7 @@ def test_host_beam_matches_device_beam(rng):
 
 
 def test_host_beam_matches_exhaustive(rng):
-    from jiao_liao_speech_recognition_tpu.decode.ctc import (
+    from jiao_liao_asr.decode.ctc import (
         ctc_prefix_beam_search_host,
     )
 

@@ -11,17 +11,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu import api
-from jiao_liao_speech_recognition_tpu.data import CharTokenizer, ManifestRow, write_manifest
-from jiao_liao_speech_recognition_tpu.evals import cer
-from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
-from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-from jiao_liao_speech_recognition_tpu.train.engine import (
+from jiao_liao_asr import api
+from jiao_liao_asr.data import CharTokenizer, ManifestRow, write_manifest
+from jiao_liao_asr.evals import cer
+from jiao_liao_asr.frontend.audio_io import write_wav
+from jiao_liao_asr.models.bundle import ModelBundle
+from jiao_liao_asr.train.engine import (
     batch_to_device,
     build_train_setup,
     init_state,
 )
-from jiao_liao_speech_recognition_tpu.utils.config import (
+from jiao_liao_asr.utils.config import (
     CTCModelConfig,
     DataConfig,
     DialectStage,
@@ -42,7 +42,7 @@ def _tiny_config(vocab_size):
         ctc_model=CTCModelConfig(
             vocab_size=vocab_size, d_model=64, num_layers=2, num_heads=4,
             mlp_dim=128, conv_channels=32, dtype="float32",
-            use_flash_attention=False, dropout=0.0,
+            dropout=0.0,
         ),
         specaugment=SpecAugmentConfig(enabled=False),
         data=DataConfig(
@@ -157,7 +157,7 @@ def test_fine_tune_api_smoke(tmp_path, rng):
 
 def test_multi_dialect_stages(tmp_path, rng):
     """Sequential neighbor->target transfer schedule (BASELINE configs[3])."""
-    from jiao_liao_speech_recognition_tpu.train.schedules import run_stages
+    from jiao_liao_asr.train.schedules import run_stages
 
     manifests = {}
     for dialect, text in [("jilu", "北京话很好"), ("jiaoliao", TEXT)]:
@@ -236,7 +236,7 @@ def test_eval_during_training(tmp_path, rng):
 def test_collect_audio_mixed_sample_rates(tmp_path):
     """Each input carries its own rate: a 16 kHz file, an 8 kHz file, and a
     raw array must each be resampled individually to fe.sample_rate."""
-    from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
+    from jiao_liao_asr.frontend.audio_io import write_wav
 
     rng = np.random.RandomState(0)
     a16 = (rng.randn(16000) * 0.1).astype(np.float32)  # 1 s @ 16 kHz

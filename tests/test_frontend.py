@@ -7,14 +7,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.frontend import (
+from jiao_liao_asr.frontend import (
     log_mel_spectrogram,
     mel_filterbank,
     resample,
     spec_augment,
 )
-from jiao_liao_speech_recognition_tpu.frontend.features import pad_or_trim, featurize_batch
-from jiao_liao_speech_recognition_tpu.utils.config import FrontendConfig, SpecAugmentConfig
+from jiao_liao_asr.frontend.features import pad_or_trim, featurize_batch
+from jiao_liao_asr.utils.config import FrontendConfig, SpecAugmentConfig
 
 TOL = 2e-4  # normalized log-mel units; argmax-text parity needs << 0.25
 
@@ -107,7 +107,7 @@ def test_specaugment_masks_and_determinism():
 
 
 def test_wav_roundtrip(tmp_path, tiny_wav):
-    from jiao_liao_speech_recognition_tpu.frontend.audio_io import read_wav, write_wav
+    from jiao_liao_asr.frontend.audio_io import read_wav, write_wav
 
     p = tmp_path / "x.wav"
     write_wav(p, tiny_wav, 16000)
@@ -122,7 +122,7 @@ def test_native_wavio_rejects_malformed_headers(tmp_path):
     rejected by the C++ decoder, not heap-over-read or divide by zero."""
     import struct
 
-    from jiao_liao_speech_recognition_tpu.utils import native_ext
+    from jiao_liao_asr.utils import native_ext
 
     if not native_ext.native_available("wavio"):
         pytest.skip("native wavio not built")
@@ -159,7 +159,7 @@ def test_native_wavio_rejects_malformed_headers(tmp_path):
 
     # a well-formed file still reads
     ok = tmp_path / "ok.wav"
-    from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
+    from jiao_liao_asr.frontend.audio_io import write_wav
 
     write_wav(ok, np.zeros(100, np.float32), 16000)
     pcm, sr = wavio.read(str(ok))

@@ -7,14 +7,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.frontend.augment import augment_waveform
-from jiao_liao_speech_recognition_tpu.frontend.cmvn import (
+from jiao_liao_asr.frontend.augment import augment_waveform
+from jiao_liao_asr.frontend.cmvn import (
     GlobalCMVN,
     apply_global_cmvn,
     load_cmvn,
 )
-from jiao_liao_speech_recognition_tpu.frontend.features import fbank
-from jiao_liao_speech_recognition_tpu.utils.config import AugmentConfig, FrontendConfig
+from jiao_liao_asr.frontend.features import fbank
+from jiao_liao_asr.utils.config import AugmentConfig, FrontendConfig
 
 
 def test_fbank_shapes_and_cmvn():
@@ -76,7 +76,7 @@ def test_augment_jit_compatible():
 
 
 def test_rtfx_harness():
-    from jiao_liao_speech_recognition_tpu.evals.rtfx import measure_rtfx
+    from jiao_liao_asr.evals.rtfx import measure_rtfx
 
     def infer(wav, lengths):
         return jnp.sum(wav, axis=1).astype(jnp.int32)
@@ -87,7 +87,7 @@ def test_rtfx_harness():
 
 
 def test_checked_catches_nan():
-    from jiao_liao_speech_recognition_tpu.utils.profiling import checked
+    from jiao_liao_asr.utils.profiling import checked
 
     def bad(x):
         return jnp.log(x)  # nan for negative
@@ -101,7 +101,7 @@ def test_checked_catches_nan():
 def test_pitch_shift_changes_pitch_preserves_shape():
     """pitch_semitones is consumed: a pure tone shifted +2 semitones moves
     its dominant frequency by ~2^(2/12) while keeping length/duration."""
-    from jiao_liao_speech_recognition_tpu.frontend.augment import pitch_shift
+    from jiao_liao_asr.frontend.augment import pitch_shift
 
     sr, n = 16000, 16000
     t = np.arange(n) / sr
@@ -132,7 +132,7 @@ def test_augment_consumes_pitch_config():
 def test_global_cmvn_wired_into_featurize(tmp_path, rng):
     """cmvn='global' loads stats from cmvn_stats_path and applies them;
     a missing path fails loudly instead of silently no-oping."""
-    from jiao_liao_speech_recognition_tpu.frontend.features import featurize_batch
+    from jiao_liao_asr.frontend.features import featurize_batch
 
     wav = jnp.asarray(rng.randn(2, 32000).astype(np.float32) * 0.1)
     base_cfg = FrontendConfig(chunk_seconds=2.0, cmvn="none")
@@ -176,7 +176,7 @@ def _gain_at(wav_out, wav_in, freq, sr=16000):
 def test_lowpass_fir_frequency_response():
     """random_lowpass with a pinned cutoff: passband unity, stopband
     attenuated (windowed-sinc property, julius-equivalent)."""
-    from jiao_liao_speech_recognition_tpu.frontend.augment import random_lowpass
+    from jiao_liao_asr.frontend.augment import random_lowpass
 
     sr, n = 16000, 8192
     t = np.arange(n) / sr
@@ -190,7 +190,7 @@ def test_lowpass_fir_frequency_response():
 
 
 def test_highpass_fir_frequency_response():
-    from jiao_liao_speech_recognition_tpu.frontend.augment import random_highpass
+    from jiao_liao_asr.frontend.augment import random_highpass
 
     sr, n = 16000, 8192
     t = np.arange(n) / sr
@@ -203,7 +203,7 @@ def test_highpass_fir_frequency_response():
 
 
 def test_bandpass_fir_frequency_response():
-    from jiao_liao_speech_recognition_tpu.frontend.augment import random_bandpass
+    from jiao_liao_asr.frontend.augment import random_bandpass
 
     sr, n = 16000, 8192
     t = np.arange(n) / sr
@@ -222,7 +222,7 @@ def test_bandpass_fir_frequency_response():
 def test_filter_augment_per_example_cutoffs_and_jit():
     """Per-example cutoffs: with a wide range, two batch rows of the same
     tone get different attenuation; whole transform jits."""
-    from jiao_liao_speech_recognition_tpu.frontend.augment import random_lowpass
+    from jiao_liao_asr.frontend.augment import random_lowpass
 
     sr, n = 16000, 4096
     t = np.arange(n) / sr
@@ -240,7 +240,7 @@ def test_time_stretch_preserves_pitch_changes_tempo():
     """Standalone time stretch at rate 1.25: a tone-burst occupying the
     first 60% of the buffer compresses to ~48% while its dominant frequency
     stays put (pitch preserved, unlike speed_perturb)."""
-    from jiao_liao_speech_recognition_tpu.frontend.augment import time_stretch
+    from jiao_liao_asr.frontend.augment import time_stretch
 
     sr, n = 16000, 16000
     t = np.arange(n) / sr

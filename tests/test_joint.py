@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jiao_liao_speech_recognition_tpu.models.joint import JointCTCAttentionModel
-from jiao_liao_speech_recognition_tpu.utils.config import (
+from jiao_liao_asr.models.joint import JointCTCAttentionModel
+from jiao_liao_asr.utils.config import (
     AdapterConfig,
     DataConfig,
     ExperimentConfig,
@@ -23,7 +23,7 @@ def tiny_cfg(**kw):
     base = dict(
         vocab_size=32, d_model=32, num_layers=2, decoder_layers=2,
         num_heads=2, mlp_dim=64, conv_channels=16, dropout=0.0,
-        dtype="float32", use_flash_attention=False, max_target_positions=32,
+        dtype="float32", max_target_positions=32,
     )
     base.update(kw)
     return JointModelConfig(**base)
@@ -59,7 +59,7 @@ def test_joint_forward_shapes():
 @pytest.mark.heavy
 def test_joint_decode_step_matches_teacher_forced():
     """Incremental KV-cached decode must reproduce teacher-forced logits —
-    the AttAdapter-parity discipline (ADVICE r1) applied to the new family."""
+    the AttAdapter-parity discipline applied to the joint family."""
     for kind in ("none", "wf", "att", "bottleneck"):
         cfg = tiny_cfg(adapter=AdapterConfig(
             kind=kind, wf_rank=2, bottleneck_dim=8, att_num_heads=1, att_key_dim=8,
@@ -97,13 +97,13 @@ def test_joint_decode_step_matches_teacher_forced():
 
 
 def test_joint_loss_and_train_step():
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.train.engine import (
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.train.engine import (
         batch_to_device,
         build_train_setup,
         init_state,
     )
-    from jiao_liao_speech_recognition_tpu.data.pipeline import Batch
+    from jiao_liao_asr.data.pipeline import Batch
 
     config = ExperimentConfig(
         model_family="joint",
@@ -147,7 +147,7 @@ def test_joint_loss_and_train_step():
 
 
 def test_joint_greedy_and_beam_decode():
-    from jiao_liao_speech_recognition_tpu.decode.joint_generate import (
+    from jiao_liao_asr.decode.joint_generate import (
         joint_beam,
         joint_greedy,
     )
@@ -173,8 +173,8 @@ def test_joint_greedy_and_beam_decode():
 
 
 def test_joint_bundle_transcribe_all_strategies():
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.models.bundle import ModelBundle
 
     tok = CharTokenizer.build(["你好世界测试"])
     config = ExperimentConfig(
@@ -194,9 +194,9 @@ def test_joint_bundle_transcribe_all_strategies():
 def test_joint_train_loop_e2e(tmp_path):
     """run_experiment with model_family=joint end to end: corpus -> hybrid
     training -> checkpoint; attention decode overfits a 2-utterance corpus."""
-    from jiao_liao_speech_recognition_tpu.data import ManifestRow, write_manifest
-    from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
-    from jiao_liao_speech_recognition_tpu.train.engine import run_experiment
+    from jiao_liao_asr.data import ManifestRow, write_manifest
+    from jiao_liao_asr.frontend.audio_io import write_wav
+    from jiao_liao_asr.train.engine import run_experiment
 
     rng = np.random.RandomState(0)
     rows = []

@@ -20,11 +20,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-from jiao_liao_speech_recognition_tpu.models.ctc_model import CTCEncoderModel
-from jiao_liao_speech_recognition_tpu.models.layers import banded_length_mask
-from jiao_liao_speech_recognition_tpu.utils.config import (
+from jiao_liao_asr.data.tokenizer import CharTokenizer
+from jiao_liao_asr.models.bundle import ModelBundle
+from jiao_liao_asr.models.ctc_model import CTCEncoderModel
+from jiao_liao_asr.models.layers import banded_length_mask
+from jiao_liao_asr.utils.config import (
     CTCModelConfig,
     ExperimentConfig,
 )
@@ -48,8 +48,7 @@ def test_banded_length_mask_values():
 def _model(left, right, position_mode="none"):
     cfg = CTCModelConfig(
         vocab_size=8, d_model=32, num_layers=2, num_heads=2, mlp_dim=64,
-        conv_channels=16, dtype="float32", use_flash_attention=False,
-        dropout=0.0, attention_left_context=left,
+        conv_channels=16, dtype="float32", dropout=0.0, attention_left_context=left,
         attention_right_context=right, position_mode=position_mode,
     )
     model = CTCEncoderModel(cfg)
@@ -89,7 +88,7 @@ def test_limited_context_independence():
 def test_streaming_matches_offline_exactly_with_band():
     """The guarantee limited-context training buys: sliding-window streamed
     text == offline text, bit for bit, on ANY audio (random-init model)."""
-    from jiao_liao_speech_recognition_tpu.serve.streaming import (
+    from jiao_liao_asr.serve.streaming import (
         StreamingConfig,
         StreamingTranscriber,
     )
@@ -98,8 +97,7 @@ def test_streaming_matches_offline_exactly_with_band():
         model_family="ctc",
         ctc_model=CTCModelConfig(
             vocab_size=8, d_model=32, num_layers=2, num_heads=2, mlp_dim=64,
-            conv_channels=16, dtype="float32", use_flash_attention=False,
-            dropout=0.0, attention_left_context=8, attention_right_context=4,
+            conv_channels=16, dtype="float32", dropout=0.0, attention_left_context=8, attention_right_context=4,
             position_mode="none",
         ),
     )

@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-from jiao_liao_speech_recognition_tpu.decode.ctc import ctc_prefix_beam_search_host
-from jiao_liao_speech_recognition_tpu.decode.lm import NGramCharLM
+from jiao_liao_asr.data.tokenizer import CharTokenizer
+from jiao_liao_asr.decode.ctc import ctc_prefix_beam_search_host
+from jiao_liao_asr.decode.lm import NGramCharLM
 
 TEXTS = ["你好世界", "你好胶辽", "你好世界真好", "世界你好"] * 5
 
@@ -82,14 +82,13 @@ def test_bigram_matrix_matches_logp(lm_and_tok):
 
 def test_device_beam_fusion_biases_whisper(tmp_path):
     """beam_generate with a bigram matrix biases token choice on device."""
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import beam_generate
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
-    from jiao_liao_speech_recognition_tpu.utils.config import WhisperConfig
+    from jiao_liao_asr.decode.whisper_generate import beam_generate
+    from jiao_liao_asr.models.whisper import WhisperModel
+    from jiao_liao_asr.utils.config import WhisperConfig
 
     cfg = WhisperConfig(
         vocab_size=32, d_model=32, encoder_layers=1, decoder_layers=1,
         num_heads=2, mlp_dim=64, max_target_positions=16, dtype="float32",
-        use_flash_attention=False,
     )
     model = WhisperModel(cfg)
     mel = jnp.asarray(np.random.RandomState(0).randn(1, 80, 40).astype(np.float32))

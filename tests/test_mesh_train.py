@@ -1,4 +1,4 @@
-"""Mesh-integrated production training (VERDICT r1 items 2-3, 7):
+"""Mesh-integrated production training:
 
 * run_experiment/train_loop build the mesh from config.mesh, shard every
   batch over ('data','fsdp'), and FSDP+ZeRO-shard params AND optimizer state
@@ -26,22 +26,22 @@ import jax.numpy as jnp
 pytestmark = pytest.mark.heavy
 from jax.sharding import PartitionSpec as P
 
-from jiao_liao_speech_recognition_tpu.data import CharTokenizer, Manifest, ManifestRow
-from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
-from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-from jiao_liao_speech_recognition_tpu.parallel.mesh import (
+from jiao_liao_asr.data import CharTokenizer, Manifest, ManifestRow
+from jiao_liao_asr.frontend.audio_io import write_wav
+from jiao_liao_asr.models.bundle import ModelBundle
+from jiao_liao_asr.parallel.mesh import (
     build_mesh,
     build_mesh_for_batch,
     opt_state_sharding,
     param_sharding,
     shard_state,
 )
-from jiao_liao_speech_recognition_tpu.train.engine import (
+from jiao_liao_asr.train.engine import (
     build_train_setup,
     init_state,
     train_loop,
 )
-from jiao_liao_speech_recognition_tpu.utils.config import (
+from jiao_liao_asr.utils.config import (
     AdapterConfig,
     CTCModelConfig,
     DataConfig,
@@ -58,7 +58,7 @@ def _cfg(batch=8, steps=4, adapters=False):
         model_family="ctc",
         ctc_model=CTCModelConfig(
             vocab_size=24, d_model=64, num_layers=1, num_heads=4, mlp_dim=128,
-            conv_channels=32, dtype="float32", use_flash_attention=False, dropout=0.0,
+            conv_channels=32, dtype="float32", dropout=0.0,
             adapter=AdapterConfig(kind="wf", wf_rank=4) if adapters else AdapterConfig(),
         ),
         specaugment=SpecAugmentConfig(enabled=False),
@@ -174,7 +174,7 @@ def test_run_stages_checkpoints_and_resumes(tmp_path, rng):
     manifest_a = _corpus(tmp_path / "a", rng, n=4)
     manifest_b = _corpus(tmp_path / "b", rng, n=4)
     ma, mb = str(tmp_path / "a.jsonl"), str(tmp_path / "b.jsonl")
-    from jiao_liao_speech_recognition_tpu.data import write_manifest
+    from jiao_liao_asr.data import write_manifest
 
     write_manifest(manifest_a.rows, ma)
     write_manifest(manifest_b.rows, mb)
@@ -191,7 +191,7 @@ def test_run_stages_checkpoints_and_resumes(tmp_path, rng):
         cfg.train.checkpoint_every_steps = 1
         return cfg
 
-    from jiao_liao_speech_recognition_tpu.train.schedules import run_stages
+    from jiao_liao_asr.train.schedules import run_stages
 
     # uninterrupted reference
     cfg = stage_cfg(str(tmp_path / "ck_full"))
@@ -206,8 +206,8 @@ def test_run_stages_checkpoints_and_resumes(tmp_path, rng):
         import sys
         sys.path.insert(0, {str(os.getcwd())!r})
         from tests.test_mesh_train import _cfg
-        from jiao_liao_speech_recognition_tpu.train.schedules import run_stages
-        from jiao_liao_speech_recognition_tpu.utils.config import DialectStage
+        from jiao_liao_asr.train.schedules import run_stages
+        from jiao_liao_asr.utils.config import DialectStage
         cfg = _cfg(batch=2, steps=0, adapters=True)
         cfg.stages = (
             DialectStage(name="neighbor", manifests=({ma!r},), steps=3,

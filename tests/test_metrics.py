@@ -4,7 +4,7 @@ and, when available, vs jiwer-style formulas on fixture pairs."""
 import numpy as np
 import pytest
 
-from jiao_liao_speech_recognition_tpu.evals import (
+from jiao_liao_asr.evals import (
     cer,
     corpus_cer,
     corpus_wer,

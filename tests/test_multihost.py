@@ -1,10 +1,10 @@
 """Multi-host (multi-process) SPMD integration tests (SURVEY C19/§5.8).
 
 The reference's distributed mode is multi-process DDP via `accelerate
-launch` (/root/reference/requirements.txt:1,75). TPU-natively that is
+launch` (/root/reference/requirements.txt:1,75). Here that is
 multi-controller SPMD: here 2 subprocesses x 4 virtual CPU devices form one
 8-device global mesh (gloo collectives), run the PRODUCTION train_loop with
-per-process data sharding + orbax checkpointing, and must reproduce the
+per-process data sharding + checkpointing, and must reproduce the
 1-process x 8-device loss trajectory exactly (same global batches, same
 mesh partitioning).
 """
@@ -22,8 +22,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _make_corpus(workdir: str, n: int = 16) -> None:
-    from jiao_liao_speech_recognition_tpu.data import ManifestRow, write_manifest
-    from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
+    from jiao_liao_asr.data import ManifestRow, write_manifest
+    from jiao_liao_asr.frontend.audio_io import write_wav
 
     rng = np.random.RandomState(7)
     texts = ["你好世界", "胶辽官话", "语音识别测试", "多机并行"]
@@ -77,10 +77,10 @@ def test_batch_iterator_local_slices_partition_global_batch(tmp_path):
     (process_index, process_count) must produce row slices that concatenate
     exactly to the single-process batch, with identical global iterator
     state."""
-    from jiao_liao_speech_recognition_tpu.data.manifest import read_manifest
-    from jiao_liao_speech_recognition_tpu.data.pipeline import BatchIterator
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.utils.config import DataConfig
+    from jiao_liao_asr.data.manifest import read_manifest
+    from jiao_liao_asr.data.pipeline import BatchIterator
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.utils.config import DataConfig
 
     _make_corpus(str(tmp_path), n=12)
     manifest = read_manifest(os.path.join(str(tmp_path), "train.jsonl"))
@@ -106,10 +106,10 @@ def test_batch_iterator_local_slices_partition_global_batch(tmp_path):
 
 
 def test_batch_iterator_rejects_indivisible_process_count(tmp_path):
-    from jiao_liao_speech_recognition_tpu.data.manifest import read_manifest
-    from jiao_liao_speech_recognition_tpu.data.pipeline import BatchIterator
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.utils.config import DataConfig
+    from jiao_liao_asr.data.manifest import read_manifest
+    from jiao_liao_asr.data.pipeline import BatchIterator
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.utils.config import DataConfig
 
     _make_corpus(str(tmp_path), n=6)
     manifest = read_manifest(os.path.join(str(tmp_path), "train.jsonl"))
@@ -137,9 +137,9 @@ def test_two_process_matches_single_process(tmp_path):
     assert multi[1]["losses"][-1] == pytest.approx(multi[0]["losses"][-1], rel=2e-4)
     assert multi[0]["final_step"] == single[0]["final_step"] == 4
 
-    # orbax checkpoint written collectively, extra.json by the primary only
+    # state gathered collectively, written with extra.json by the primary
     ckpt = os.path.join(workdir, "ckpt_np2", "00000004")
-    assert os.path.isdir(os.path.join(ckpt, "state"))
+    assert os.path.exists(os.path.join(ckpt, "state.npz"))
     assert os.path.exists(os.path.join(ckpt, "extra.json"))
 
     # exact resume across the process boundary: 2 more steps from the

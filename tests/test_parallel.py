@@ -10,18 +10,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-from jiao_liao_speech_recognition_tpu.parallel.mesh import (
+from jiao_liao_asr.models.bundle import ModelBundle
+from jiao_liao_asr.parallel.mesh import (
     batch_sharding,
     build_mesh,
     param_sharding,
     replicated,
 )
-from jiao_liao_speech_recognition_tpu.train.engine import (
+from jiao_liao_asr.train.engine import (
     build_train_setup,
     init_state,
 )
-from jiao_liao_speech_recognition_tpu.utils.config import (
+from jiao_liao_asr.utils.config import (
     CTCModelConfig,
     ExperimentConfig,
     MeshConfig,
@@ -37,7 +37,7 @@ CFG = ExperimentConfig(
     model_family="ctc",
     ctc_model=CTCModelConfig(
         vocab_size=32, d_model=64, num_layers=2, num_heads=4, mlp_dim=128,
-        conv_channels=32, dtype="float32", use_flash_attention=False, dropout=0.0,
+        conv_channels=32, dtype="float32", dropout=0.0,
     ),
     specaugment=SpecAugmentConfig(enabled=False),
 )

@@ -3,15 +3,15 @@ headers, deterministic splits, full prep pipeline."""
 
 import numpy as np
 
-from jiao_liao_speech_recognition_tpu.data.prepare import (
+from jiao_liao_asr.data.prepare import (
     from_directory,
     from_transcript_table,
     prepare_corpus,
     split_manifest,
     wav_duration,
 )
-from jiao_liao_speech_recognition_tpu.data.manifest import Manifest, ManifestRow, read_manifest
-from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
+from jiao_liao_asr.data.manifest import Manifest, ManifestRow, read_manifest
+from jiao_liao_asr.frontend.audio_io import write_wav
 
 
 def _make_wavs(tmp_path, rng, n=10, secs=1.0):
@@ -81,8 +81,8 @@ def test_prepare_cli_subcommand(tmp_path, rng):
     import json as _json
     from pathlib import Path
 
-    from jiao_liao_speech_recognition_tpu.cli import main as cli_main
-    from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
+    from jiao_liao_asr.cli import main as cli_main
+    from jiao_liao_asr.frontend.audio_io import write_wav
 
     table = tmp_path / "table.tsv"
     lines = []

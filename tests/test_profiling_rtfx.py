@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jiao_liao_speech_recognition_tpu.evals.rtfx import RTFxResult, measure_rtfx
-from jiao_liao_speech_recognition_tpu.utils.profiling import (
+from jiao_liao_asr.evals.rtfx import RTFxResult, measure_rtfx
+from jiao_liao_asr.utils.profiling import (
     annotate,
     checked,
     device_memory_stats,

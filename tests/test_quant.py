@@ -1,16 +1,15 @@
 """Weight-only int8 decode quantization (ops/quant.py + ModelBundle.quantize).
 
-The serving transform for HBM-bound whisper AR decode: decoder Dense
-kernels become int8 + per-output-channel scales, dequantized in VMEM by the
-Pallas gemv kernel (interpret mode here; the real-chip throughput win is
-recorded in docs/PERFORMANCE.md)."""
+The serving transform for memory-bound whisper AR decode: decoder Dense
+kernels become int8 + per-output-channel scales, and the int8 KV caches
+carry per-position scales that the attention folds in elementwise."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jiao_liao_speech_recognition_tpu.ops import quant as Q
+from jiao_liao_asr.ops import quant as Q
 
 
 def test_quantize_int8_roundtrip_error_bound():
@@ -30,34 +29,27 @@ def test_quantize_int8_zero_channel():
     assert np.all(np.asarray(q) == 0) and np.all(np.asarray(scale) == 0)
 
 
-def test_int8_matmul_pallas_matches_xla():
-    rng = np.random.RandomState(1)
-    x = jnp.asarray(rng.randn(3, 200).astype(np.float32), jnp.bfloat16)
-    w = jnp.asarray(rng.randn(200, 300).astype(np.float32) * 0.05)
-    q, scale = Q.quantize_int8(w)
-    got = Q._int8_matmul_pallas(x.astype(jnp.bfloat16), q, scale)
-    want = Q._int8_matmul_xla(x, q, scale)
-    np.testing.assert_allclose(
-        np.asarray(got, np.float32), np.asarray(want, np.float32),
-        atol=2e-2, rtol=2e-2,
-    )
-
-
 def test_int8_matmul_long_rows_takes_xla_path():
     rng = np.random.RandomState(2)
     x = jnp.asarray(rng.randn(2, 100, 64).astype(np.float32), jnp.bfloat16)
     w = jnp.asarray(rng.randn(64, 32).astype(np.float32) * 0.1)
     q, scale = Q.quantize_int8(w)
-    out = Q.int8_matmul(x, q, scale)  # 200 rows > MAX_KERNEL_ROWS
+    out = Q.int8_matmul(x, q, scale)
     assert out.shape == (2, 100, 32) and out.dtype == x.dtype
+    want = np.asarray(x, np.float32) @ (
+        np.asarray(q, np.float32) * np.asarray(scale)[None, :]
+    )
+    np.testing.assert_allclose(
+        np.asarray(out, np.float32), want, atol=3e-2, rtol=2e-2
+    )
 
 
 def test_int8_cross_attention_matches_dequantized_reference():
-    """layers._int8_cross_attention (mul-reduce over int8 caches) must match
+    """layers._int8_cache_attention (mul-reduce over int8 caches) must match
     plain f32 attention over the dequantized caches, and the caches must
     carry per-position scales that reconstruct K/V to int8 accuracy."""
-    from jiao_liao_speech_recognition_tpu.models.layers import (
-        _int8_cross_attention,
+    from jiao_liao_asr.models.layers import (
+        _int8_cache_attention as _int8_cross_attention,
     )
 
     rng = np.random.RandomState(5)
@@ -92,66 +84,45 @@ def test_int8_cross_attention_matches_dequantized_reference():
     np.testing.assert_allclose(kd, k, atol=0.5 * np.abs(k).max() / 127 + 1e-7)
 
 
-def test_int8_decode_attention_kernel_matches_reference(monkeypatch):
-    """Pallas int8 decode-attention kernel (interpret mode here) vs the
-    mul-reduce reference path in layers._int8_cross_attention. The gate is
-    pinned both ways so this never compares the kernel to itself (even when
-    the suite runs on a TPU host)."""
-    from jiao_liao_speech_recognition_tpu.models import layers as L
-
-    rng = np.random.RandomState(7)
-    B, H, Tq, Tk, dh = 2, 3, 1, 150, 64
-    q = jnp.asarray(rng.randn(B, H, Tq, dh).astype(np.float32))
-    kq, ks = Q.quantize_kv(rng.randn(B, H, Tk, dh).astype(np.float32))
-    vq, vs = Q.quantize_kv(rng.randn(B, H, Tk, dh).astype(np.float32))
-    lens = jnp.asarray([Tk, 97], jnp.int32)
-    # dispatch branch (layers -> kernel), forced on regardless of backend
-    monkeypatch.setattr(L, "_on_tpu", lambda: True)
-    got = L._int8_cross_attention(q, kq, ks, vq, vs, lens, None, jnp.float32)
-    # reference branch, forced off
-    monkeypatch.setattr(L, "_on_tpu", lambda: False)
-    want = L._int8_cross_attention(q, kq, ks, vq, vs, lens, None, jnp.float32)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want, np.float32), atol=3e-2, rtol=3e-2
-    )
-
-
 def test_int8_decode_attention_zero_length_row_is_finite():
     """A zero-length row must give a finite (uniform-softmax) output, not
-    NaN — the kernel masks with finfo.min like the reference branch."""
+    NaN — the int8 cache attention masks with finfo.min."""
+    from jiao_liao_asr.models import layers as L
+
     rng = np.random.RandomState(9)
     B, H, Tq, Tk, dh = 2, 2, 1, 40, 16
     q = jnp.asarray(rng.randn(B, H, Tq, dh).astype(np.float32))
     kq, ks = Q.quantize_kv(rng.randn(B, H, Tk, dh).astype(np.float32))
     vq, vs = Q.quantize_kv(rng.randn(B, H, Tk, dh).astype(np.float32))
     lens = jnp.asarray([0, Tk], jnp.int32)
-    out = np.asarray(Q.int8_decode_attention(q, kq, ks, vq, vs, lens))
+    out = np.asarray(
+        L._int8_cache_attention(q, kq, ks, vq, vs, lens, None, jnp.float32)
+    )
     assert np.all(np.isfinite(out))
 
 
 def test_int8_cross_attention_padded_cache_matches_unpadded():
-    """The kernel-ready 128-padded cache layout (zero scales in padding, valid
-    horizon passed statically as t_enc) must give the same output as the
-    unpadded cache."""
-    from jiao_liao_speech_recognition_tpu.models import layers as L
+    """A cache longer than its valid horizon (zero scales in the tail, the
+    horizon passed as lengths) must give the same output as the cache cut
+    to the horizon."""
+    from jiao_liao_asr.models import layers as L
 
     rng = np.random.RandomState(11)
     B, H, Tq, Tk, dh = 2, 2, 1, 50, 16
     q = jnp.asarray(rng.randn(B, H, Tq, dh).astype(np.float32))
     kq, ks = Q.quantize_kv(rng.randn(B, H, Tk, dh).astype(np.float32))
     vq, vs = Q.quantize_kv(rng.randn(B, H, Tk, dh).astype(np.float32))
-    want = L._int8_cross_attention(q, kq, ks, vq, vs, None, None, jnp.float32)
+    want = L._int8_cache_attention(q, kq, ks, vq, vs, None, None, jnp.float32)
     pad3, pad4 = ((0, 0), (0, 0), (0, 128 - Tk)), ((0, 0), (0, 0), (0, 128 - Tk), (0, 0))
-    got = L._int8_cross_attention(
+    got = L._int8_cache_attention(
         q, jnp.pad(kq, pad4), jnp.pad(ks, pad3), jnp.pad(vq, pad4),
-        jnp.pad(vs, pad3), None, None, jnp.float32, t_enc=Tk,
+        jnp.pad(vs, pad3), jnp.full((B,), Tk, jnp.int32), None, jnp.float32,
     )
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
 def test_int8_tied_logits_matches_dequantized_reference():
-    """Row-major int8 logits kernel (interpret here) vs dequantize+matmul,
-    at a 128-multiple D (kernel path) and a ragged D (XLA fallback)."""
+    """Row-major int8 logits vs dequantize+matmul in numpy, at two widths."""
     rng = np.random.RandomState(13)
     for D in (128, 96):
         R, V = 3, 300  # V deliberately not a 128 multiple
@@ -159,44 +130,36 @@ def test_int8_tied_logits_matches_dequantized_reference():
         emb = rng.randn(V, D).astype(np.float32)
         qT, s = Q.quantize_int8(jnp.asarray(emb).T)
         q_vd = qT.T
-        # call the kernel path directly for the 128-multiple case (the
-        # public entry gates off-TPU to the XLA path); fallback for ragged D
-        got = (
-            Q._int8_tied_logits_pallas(x, q_vd, s)
-            if D % 128 == 0
-            else Q.int8_tied_logits(x, q_vd, s)
-        )
+        got = Q.int8_tied_logits(x, q_vd, s)
         want = np.asarray(x) @ (
             np.asarray(q_vd, np.float32) * np.asarray(s)[:, None]
         ).T
         assert got.shape == (R, V)
-        # kernel computes in bf16: abs error scales with ||x||*||row||
+        # bf16 operands: abs error scales with ||x||*||row||
         # (~11 here), not with the logit value -> atol-dominated bound
         np.testing.assert_allclose(np.asarray(got), want, atol=0.12, rtol=1e-2)
 
 
 def test_tied_embedding_matches_nn_embed():
-    """Unquantized TiedEmbedding must be a drop-in for nn.Embed: same param
-    tree and same lookup/attend numerics given the same table."""
-    import flax.linen as nn
-
-    from jiao_liao_speech_recognition_tpu.models.whisper import TiedEmbedding
+    """Unquantized TiedEmbedding is a plain embedding: one {embedding [V, D]}
+    param, lookups are its rows, attend is x @ table.T."""
+    from jiao_liao_asr.models.module import Scope
+    from jiao_liao_asr.models.whisper import TiedEmbedding
 
     rng = np.random.RandomState(15)
     V, D = 40, 16
     tokens = jnp.asarray(rng.randint(0, V, (2, 5)))
     x = jnp.asarray(rng.randn(2, 5, D).astype(np.float32))
     tied = TiedEmbedding(V, D, dtype=jnp.float32)
-    ref = nn.Embed(V, D, dtype=jnp.float32)
-    params = ref.init(jax.random.PRNGKey(0), tokens)
-    assert set(params["params"].keys()) == {"embedding"}
-    out_t = tied.apply(params, tokens)
-    out_r = ref.apply(params, tokens)
-    np.testing.assert_allclose(np.asarray(out_t), np.asarray(out_r))
-    att_t = tied.apply(params, x, method=tied.attend)
-    att_r = ref.apply(params, x, method=ref.attend)
+    params = {}
+    tied(Scope(params, init_key=jax.random.PRNGKey(0)), tokens)
+    assert set(params.keys()) == {"embedding"}
+    table = np.asarray(params["embedding"])
+    out_t = tied(Scope(params), tokens)
+    np.testing.assert_allclose(np.asarray(out_t), table[np.asarray(tokens)])
+    att_t = tied.attend(Scope(params), x)
     np.testing.assert_allclose(
-        np.asarray(att_t), np.asarray(att_r), atol=1e-5, rtol=1e-5
+        np.asarray(att_t), np.asarray(x) @ table.T, atol=1e-5, rtol=1e-5
     )
 
 
@@ -219,8 +182,8 @@ def test_quantized_bundle_builds_int8_cross_caches(monkeypatch):
     at ANY batch size; SELF caches stay packed bf16 below the head-major
     batch threshold (the measured small-batch optimum) and become int8
     head-major with per-position f32 scales above it."""
-    from jiao_liao_speech_recognition_tpu.models import layers as L
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
+    from jiao_liao_asr.models import layers as L
+    from jiao_liao_asr.models.whisper import WhisperModel
 
     bundle = _tiny_whisper_bundle()
     qb = bundle.quantize()
@@ -243,7 +206,7 @@ def test_quantized_bundle_builds_int8_cross_caches(monkeypatch):
     )
     assert caches_ref["block_0"]["cross"]["k"].dtype != jnp.int8
     assert caches_ref["block_0"]["cross"]["k"].ndim == 3
-    # above the head-major threshold: int8 self with scales, kernel-ready
+    # above the head-major threshold: int8 self with scales
     monkeypatch.setattr(L, "HEAD_MAJOR_MIN_BATCH", 1)
     caches_hm = model.apply(
         {"params": qb.params}, 2, enc, 8, method=model.init_cache
@@ -251,13 +214,12 @@ def test_quantized_bundle_builds_int8_cross_caches(monkeypatch):
     s0 = caches_hm["block_0"]["self"]
     assert s0["k"].dtype == jnp.int8
     assert s0["k"].ndim == 4
-    assert s0["k"].shape[-2] % 128 == 0
     assert "k_scale" in s0 and s0["k_scale"].dtype == jnp.float32
 
 
 def _tiny_whisper_bundle():
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import (
         ExperimentConfig,
         WhisperConfig,
     )
@@ -272,7 +234,7 @@ def _tiny_whisper_bundle():
     )
     cfg.frontend.chunk_seconds = 0.64
     params = ModelBundle._init_params(cfg)
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
 
     return ModelBundle(config=cfg, params=params, tokenizer=CharTokenizer([]))
 
@@ -283,7 +245,7 @@ def test_bundle_quantize_decoder_logit_fidelity():
     everywhere."""
     import jax.numpy as jnp
 
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
+    from jiao_liao_asr.models.whisper import WhisperModel
 
     bundle = _tiny_whisper_bundle()
     qb = bundle.quantize()
@@ -318,12 +280,11 @@ def test_bundle_quantize_decoder_logit_fidelity():
 
 def test_bundle_quantize_decode_step_runs():
     """KV-cached greedy decode works against the quantized tree (the actual
-    serving path: decode_step rows <= MAX_KERNEL_ROWS hit the gemv kernel
-    in interpret mode here)."""
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import (
+    serving path: every decoder Dense reads int8 weights per step)."""
+    from jiao_liao_asr.decode.whisper_generate import (
         greedy_generate,
     )
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
+    from jiao_liao_asr.models.whisper import WhisperModel
 
     bundle = _tiny_whisper_bundle()
     qb = bundle.quantize()
@@ -344,10 +305,10 @@ def test_bundle_quantize_beam_generate_runs():
     int8 cross caches (int8 k/v + f32 per-position scale leaves, all
     batch-major — a scalar leaf in the cache dict would crash the
     take_along_axis gather here)."""
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import (
+    from jiao_liao_asr.decode.whisper_generate import (
         beam_generate,
     )
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
+    from jiao_liao_asr.models.whisper import WhisperModel
 
     bundle = _tiny_whisper_bundle()
     qb = bundle.quantize()
@@ -362,8 +323,8 @@ def test_bundle_quantize_beam_generate_runs():
 
 
 def test_quantize_non_whisper_raises():
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import ExperimentConfig
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import ExperimentConfig
 
     cfg = ExperimentConfig()
     cfg.ctc_model.d_model = 64
@@ -373,7 +334,7 @@ def test_quantize_non_whisper_raises():
     cfg.ctc_model.conv_channels = 16
     cfg.ctc_model.vocab_size = 16
     params = ModelBundle._init_params(cfg)
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
 
     b = ModelBundle(config=cfg, params=params, tokenizer=CharTokenizer([]))
     with pytest.raises(NotImplementedError):
@@ -386,8 +347,8 @@ def test_int8_self_cache_rows_written_quantized(monkeypatch):
     themselves int8, so agreement is approximate), with zero scales at
     unwritten positions. Head-major forced: int8 self caches engage at
     B >= HEAD_MAJOR_MIN_BATCH."""
-    from jiao_liao_speech_recognition_tpu.models import layers as L
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
+    from jiao_liao_asr.models import layers as L
+    from jiao_liao_asr.models.whisper import WhisperModel
 
     monkeypatch.setattr(L, "HEAD_MAJOR_MIN_BATCH", 1)
     bundle = _tiny_whisper_bundle()
@@ -424,14 +385,14 @@ def test_int8_self_cache_rows_written_quantized(monkeypatch):
 
 def test_quantized_generate_with_int8_self_caches(monkeypatch):
     """Greedy AND beam generate run the full int8-SELF cache path (head-major
-    forced): per-step row quantization, prefix-length kernels (interpret
-    here), and beam gathers over the 4-dim int8/scale self-cache leaves."""
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import (
+    forced): per-step row quantization, prefix-length attention over the
+    int8 rows, and beam gathers over the 4-dim int8/scale self-cache leaves."""
+    from jiao_liao_asr.decode.whisper_generate import (
         beam_generate,
         greedy_generate,
     )
-    from jiao_liao_speech_recognition_tpu.models import layers as L
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
+    from jiao_liao_asr.models import layers as L
+    from jiao_liao_asr.models.whisper import WhisperModel
 
     monkeypatch.setattr(L, "HEAD_MAJOR_MIN_BATCH", 1)
     bundle = _tiny_whisper_bundle()
@@ -452,9 +413,9 @@ def test_quantized_bundle_shards_and_transcribes():
     the sharding rules must tolerate the int8 dense_q/scale and embedding_q
     leaves (replicating anything without a TP rule), and the sharded decode
     must run the quantized serving path end to end."""
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import (
         ExperimentConfig,
         WhisperConfig,
     )
@@ -476,3 +437,49 @@ def test_quantized_bundle_shards_and_transcribes():
     wav = np.random.RandomState(0).randn(16000).astype(np.float32) * 0.1
     texts = sq.transcribe([wav])
     assert len(texts) == 1 and isinstance(texts[0], str)
+
+
+@pytest.mark.parametrize("positions", [(0, 0), (3, 7), (11, 0), (5, 11)])
+def test_int8_self_attention_step_matches_dequantized_reference(positions):
+    """One MultiHeadAttention decode step over an int8 head-major self cache,
+    each row at its own position (continuous batching): the step's K/V row
+    is written quantized at that position and the query attends over
+    positions 0..pos of the dequantized cache, padding beyond ignored."""
+    from jiao_liao_asr.models.layers import MultiHeadAttention
+    from jiao_liao_asr.models.module import Scope
+
+    B, H, dh, Tc = 2, 2, 8, 12
+    d = H * dh
+    rng = np.random.RandomState(sum(positions) + 1)
+    mha = MultiHeadAttention(H, d, jnp.float32)
+    x = jnp.asarray(rng.randn(B, 1, d).astype(np.float32))
+    params = {}
+    mha(Scope(params, init_key=jax.random.PRNGKey(2)), x)
+    kq, ks = Q.quantize_kv(rng.randn(B, H, Tc, dh).astype(np.float32))
+    vq, vs = Q.quantize_kv(rng.randn(B, H, Tc, dh).astype(np.float32))
+    cache = {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
+    pos = jnp.asarray(positions, jnp.int32)
+    out, new = mha(Scope(params), x, kv_cache=cache, cache_index=pos,
+                   kv_lengths=pos + 1)
+
+    p = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), params)
+    xn = np.asarray(x, np.float64)[:, 0]
+    q = (xn @ p["q_proj"]["dense"]["kernel"] + p["q_proj"]["dense"]["bias"])
+    k_row = xn @ p["k_proj"]["dense"]["kernel"]
+    v_row = xn @ p["v_proj"]["dense"]["kernel"] + p["v_proj"]["dense"]["bias"]
+    kd = np.asarray(kq, np.float64) * np.asarray(ks)[..., None]
+    vd = np.asarray(vq, np.float64) * np.asarray(vs)[..., None]
+    want = np.zeros((B, d))
+    for b, t in enumerate(positions):
+        for name, row, deq in (("k", k_row, kd), ("v", v_row, vd)):
+            rq, rs = Q.quantize_kv(row[b].reshape(H, 1, dh).astype(np.float32))
+            got_rows = np.asarray(new[name], np.float64)[b, :, t]
+            np.testing.assert_array_equal(got_rows, np.asarray(rq)[:, 0])
+            deq[b, :, t] = np.asarray(rq, np.float64)[:, 0] * np.asarray(rs)
+        qh = q[b].reshape(H, dh)
+        s = np.einsum("hd,htd->ht", qh, kd[b, :, : t + 1]) / np.sqrt(dh)
+        w = np.exp(s - s.max(-1, keepdims=True))
+        w /= w.sum(-1, keepdims=True)
+        want[b] = np.einsum("ht,htd->hd", w, vd[b, :, : t + 1]).reshape(d)
+    want = want @ p["out_proj"]["dense"]["kernel"] + p["out_proj"]["dense"]["bias"]
+    np.testing.assert_allclose(np.asarray(out)[:, 0], want, atol=1e-4, rtol=1e-4)

@@ -9,21 +9,21 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.data import (
+from jiao_liao_asr.data import (
     BatchIterator,
     CharTokenizer,
     ManifestRow,
     Manifest,
 )
-from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
-from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-from jiao_liao_speech_recognition_tpu.train.checkpoints import TrainCheckpointer
-from jiao_liao_speech_recognition_tpu.train.engine import (
+from jiao_liao_asr.frontend.audio_io import write_wav
+from jiao_liao_asr.models.bundle import ModelBundle
+from jiao_liao_asr.train.checkpoints import TrainCheckpointer
+from jiao_liao_asr.train.engine import (
     batch_to_device,
     build_train_setup,
     init_state,
 )
-from jiao_liao_speech_recognition_tpu.utils.config import (
+from jiao_liao_asr.utils.config import (
     CTCModelConfig,
     DataConfig,
     ExperimentConfig,
@@ -37,7 +37,7 @@ def _cfg():
         model_family="ctc",
         ctc_model=CTCModelConfig(
             vocab_size=24, d_model=64, num_layers=1, num_heads=4, mlp_dim=128,
-            conv_channels=32, dtype="float32", use_flash_attention=False, dropout=0.0,
+            conv_channels=32, dtype="float32", dropout=0.0,
         ),
         specaugment=SpecAugmentConfig(enabled=False),
         data=DataConfig(batch_size=2, bucket_boundaries_seconds=(1.5,),

@@ -21,7 +21,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.models.layers import update_cache_rows
+from jiao_liao_asr.models.layers import update_cache_rows
 
 
 # --------------------------------------------------------------- fixtures
@@ -30,9 +30,9 @@ PROMPT = (1, 3)
 
 
 def _tiny_bundle(vocab_size=96, decoder_layers=2):
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import (
         ExperimentConfig,
         WhisperConfig,
     )
@@ -44,7 +44,6 @@ def _tiny_bundle(vocab_size=96, decoder_layers=2):
             decoder_layers=decoder_layers, num_heads=2, mlp_dim=128,
             max_source_positions=32, max_target_positions=16,
             prompt_ids=PROMPT, eot_id=EOT, dtype="float32",
-            use_flash_attention=False,
         ),
     )
     cfg.frontend.chunk_seconds = 0.64
@@ -125,7 +124,7 @@ def test_update_cache_rows_ragged_rows():
 def test_decode_step_vector_pos_matches_scalar():
     """A [B] all-equal position vector must produce the same logits and the
     same cache contents as the scalar position."""
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
+    from jiao_liao_asr.models.whisper import WhisperModel
 
     bundle = _tiny_bundle()
     model = WhisperModel(bundle.config.whisper)
@@ -170,7 +169,7 @@ def test_decode_step_vector_pos_matches_scalar():
 def test_serving_engine_matches_offline_greedy():
     """5 utterances through a 2-slot pool (mid-flight admission as lanes
     free) == offline batched greedy transcribe, text for text."""
-    from jiao_liao_speech_recognition_tpu.serve import ServingEngine
+    from jiao_liao_asr.serve import ServingEngine
 
     bundle = _tiny_bundle()
     wavs = _wavs(5, seed=3)
@@ -187,7 +186,7 @@ def test_serving_engine_matches_offline_greedy():
 def test_serving_engine_timestamps_match_offline_timed():
     """timestamps=True: each finished request carries per-token spans equal
     to bundle.transcribe_timed's (same alignment, same window)."""
-    from jiao_liao_speech_recognition_tpu.serve import ServingEngine
+    from jiao_liao_asr.serve import ServingEngine
 
     bundle = _tiny_bundle()
     wavs = _wavs(3, seed=5)
@@ -210,7 +209,7 @@ def test_serving_engine_ragged_midflight_admission():
     """Admit lane 1 while lane 0 is several tokens deep — the slots sit at
     genuinely different positions in the same dispatch — and both texts
     still match offline greedy."""
-    from jiao_liao_speech_recognition_tpu.serve import ServingEngine
+    from jiao_liao_asr.serve import ServingEngine
 
     bundle = _tiny_bundle()
     wavs = _wavs(2, seed=4)
@@ -229,7 +228,7 @@ def test_serving_engine_ragged_midflight_admission():
 def test_serving_engine_step_api():
     """step() harvests finished requests incrementally (with timestamps),
     in_flight tracks queued + laned work, and drain() composes on step()."""
-    from jiao_liao_speech_recognition_tpu.serve import ServingEngine
+    from jiao_liao_asr.serve import ServingEngine
 
     bundle = _tiny_bundle()
     wavs = _wavs(3, seed=7)
@@ -250,7 +249,7 @@ def test_serving_engine_quantized_bundle():
     """quantize() -> ServingEngine composes: int8 decoder weights + int8
     cross caches stream through the slot pool and match the quantized
     offline transcribe."""
-    from jiao_liao_speech_recognition_tpu.serve import ServingEngine
+    from jiao_liao_asr.serve import ServingEngine
 
     bundle = _tiny_bundle(decoder_layers=1)
     qb = bundle.quantize()
@@ -264,7 +263,7 @@ def test_serving_engine_long_form_chunking():
     """A recording longer than the model window splits into consecutive
     windows and re-joins per utterance, matching bundle.transcribe's
     long-form semantics (SURVEY 5.7)."""
-    from jiao_liao_speech_recognition_tpu.serve import ServingEngine
+    from jiao_liao_asr.serve import ServingEngine
 
     bundle = _tiny_bundle()
     rng = np.random.RandomState(6)
@@ -278,9 +277,9 @@ def test_serving_engine_long_form_chunking():
 
 
 def test_serving_engine_rejects_ctc_family():
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.serve import ServingEngine
-    from jiao_liao_speech_recognition_tpu.utils.config import ExperimentConfig
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.serve import ServingEngine
+    from jiao_liao_asr.utils.config import ExperimentConfig
 
     cfg = ExperimentConfig(model_family="ctc")
     cfg.ctc_model.d_model = 64

@@ -12,13 +12,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jiao_liao_speech_recognition_tpu.decode.joint_generate import joint_greedy
-from jiao_liao_speech_recognition_tpu.decode.speculative import (
+from jiao_liao_asr.decode.joint_generate import joint_greedy
+from jiao_liao_asr.decode.speculative import (
     joint_spec_greedy,
     spec_greedy_from_enc,
 )
-from jiao_liao_speech_recognition_tpu.models.joint import JointCTCAttentionModel
-from jiao_liao_speech_recognition_tpu.utils.config import JointModelConfig
+from jiao_liao_asr.models.joint import JointCTCAttentionModel
+from jiao_liao_asr.utils.config import JointModelConfig
 
 MAX_LEN = 16
 
@@ -27,7 +27,7 @@ def tiny_cfg(**kw):
     base = dict(
         vocab_size=32, d_model=32, num_layers=2, decoder_layers=2,
         num_heads=2, mlp_dim=64, conv_channels=16, dropout=0.0,
-        dtype="float32", use_flash_attention=False, max_target_positions=32,
+        dtype="float32", max_target_positions=32,
     )
     base.update(kw)
     return JointModelConfig(**base)
@@ -73,7 +73,7 @@ def test_perfect_draft_verifies_in_one_pass():
     enc, enc_lengths = model.apply(
         {"params": params}, feats, flens, method=model.encode
     )
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import (
+    from jiao_liao_asr.decode.whisper_generate import (
         greedy_from_enc,
     )
 
@@ -99,7 +99,7 @@ def test_empty_draft_degenerates_to_greedy():
     enc, enc_lengths = model.apply(
         {"params": params}, feats, flens, method=model.encode
     )
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import (
+    from jiao_liao_asr.decode.whisper_generate import (
         greedy_from_enc,
     )
 
@@ -120,8 +120,8 @@ def test_empty_draft_degenerates_to_greedy():
 
 def test_bundle_spec_greedy_strategy():
     # the ModelBundle 'spec_greedy' strategy emits the same texts as 'greedy'
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import (
         DecodeConfig,
         ExperimentConfig,
     )
@@ -133,7 +133,7 @@ def test_bundle_spec_greedy_strategy():
     feats = jnp.asarray(rng.randn(2, cfg.joint.num_mels, 64).astype(np.float32))
     flens = jnp.asarray([64, 32], jnp.int32)
 
-    from jiao_liao_speech_recognition_tpu.models.bundle import _joint_generate_fn_for
+    from jiao_liao_asr.models.bundle import _joint_generate_fn_for
 
     g = _joint_generate_fn_for(cfg, cfg.decode)(params, feats, flens)
     cfg.decode.strategy = "spec_greedy"

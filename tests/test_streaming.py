@@ -20,14 +20,14 @@ What must hold:
 import numpy as np
 import pytest
 
-from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-from jiao_liao_speech_recognition_tpu.serve.streaming import (
+from jiao_liao_asr.data.tokenizer import CharTokenizer
+from jiao_liao_asr.models.bundle import ModelBundle
+from jiao_liao_asr.serve.streaming import (
     StreamingConfig,
     StreamingPool,
     StreamingTranscriber,
 )
-from jiao_liao_speech_recognition_tpu.utils.config import (
+from jiao_liao_asr.utils.config import (
     CTCModelConfig,
     ExperimentConfig,
     JointModelConfig,
@@ -42,8 +42,7 @@ def _ctc_bundle(vocab_size=8):
         model_family="ctc",
         ctc_model=CTCModelConfig(
             vocab_size=vocab_size, d_model=32, num_layers=2, num_heads=2,
-            mlp_dim=64, conv_channels=16, use_flash_attention=False,
-            dropout=0.0,
+            mlp_dim=64, conv_channels=16, dropout=0.0,
         ),
     )
     cfg.frontend.chunk_seconds = 2.56  # == streaming window for exactness
@@ -191,7 +190,7 @@ def test_joint_family_streams_ctc_branch():
         joint=JointModelConfig(
             vocab_size=8, d_model=32, num_layers=2, decoder_layers=1,
             num_heads=2, mlp_dim=64, conv_channels=16,
-            use_flash_attention=False, dropout=0.0,
+            dropout=0.0,
         ),
     )
     cfg.frontend.chunk_seconds = 1.28
@@ -215,7 +214,7 @@ def test_joint_family_streams_ctc_branch():
 def test_api_stream_facade():
     """api.stream yields a result per chunk plus a final one, and the final
     text equals the transcriber driven directly."""
-    from jiao_liao_speech_recognition_tpu import stream
+    from jiao_liao_asr import stream
 
     bundle = _ctc_bundle()
     sc = StreamingConfig(window_seconds=1.28, hop_seconds=0.32,
@@ -350,15 +349,14 @@ def test_validation_errors():
     with pytest.raises(RuntimeError, match="finished"):
         st.feed(_audio(0.1))
 
-    from jiao_liao_speech_recognition_tpu.utils.config import WhisperConfig
+    from jiao_liao_asr.utils.config import WhisperConfig
 
     wcfg = ExperimentConfig(
         model_family="whisper",
         whisper=WhisperConfig(
             vocab_size=16, d_model=32, encoder_layers=1, decoder_layers=1,
             num_heads=2, mlp_dim=64, max_source_positions=16,
-            max_target_positions=8, use_flash_attention=False,
-        ),
+            max_target_positions=8, ),
     )
     wb = ModelBundle(
         config=wcfg, params=None, tokenizer=CharTokenizer([]),

@@ -10,7 +10,7 @@ transcribe_timed when the utterance fits one window.
 import numpy as np
 import pytest
 
-from jiao_liao_speech_recognition_tpu.decode.ctc import (
+from jiao_liao_asr.decode.ctc import (
     ctc_collapse_with_times,
     ctc_greedy_collapse,
 )
@@ -44,9 +44,9 @@ def test_collapse_with_times_matches_device_collapse(seed):
 
 
 def _bundle(chunk_seconds=2.56):
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import (
         CTCModelConfig,
         ExperimentConfig,
     )
@@ -55,8 +55,7 @@ def _bundle(chunk_seconds=2.56):
         model_family="ctc",
         ctc_model=CTCModelConfig(
             vocab_size=8, d_model=32, num_layers=2, num_heads=2,
-            mlp_dim=64, conv_channels=16, use_flash_attention=False,
-            dropout=0.0,
+            mlp_dim=64, conv_channels=16, dropout=0.0,
         ),
     )
     cfg.frontend.chunk_seconds = chunk_seconds
@@ -92,7 +91,7 @@ def test_transcribe_timed_long_form_offsets():
 
 
 def test_streaming_timed_tokens_match_offline():
-    from jiao_liao_speech_recognition_tpu.serve.streaming import (
+    from jiao_liao_asr.serve.streaming import (
         StreamingConfig,
         StreamingTranscriber,
     )
@@ -109,7 +108,7 @@ def test_streaming_timed_tokens_match_offline():
     st.finish()
     assert st.timed_tokens == want
 
-    from jiao_liao_speech_recognition_tpu.utils.captions import group_words
+    from jiao_liao_asr.utils.captions import group_words
 
     assert st.timed_words == group_words(want)
     assert "".join(w["word"] for w in st.timed_words) == st.text
@@ -119,7 +118,7 @@ def test_streaming_timed_tokens_match_offline():
 def test_dtw_spans_recover_peaked_alignment():
     """Tokens whose attention is concentrated on known frame runs must get
     spans containing their peaks, contiguous and in order."""
-    from jiao_liao_speech_recognition_tpu.decode.align import dtw_spans
+    from jiao_liao_asr.decode.align import dtw_spans
 
     S, T = 3, 12
     peaks = [(1, 3), (5, 7), (9, 11)]
@@ -148,7 +147,7 @@ def test_dtw_spans_always_valid(seed):
     """Property: for any row-stochastic matrix with T >= S, spans are
     contiguous, non-overlapping, cover [0, T) exactly, and each token gets
     >= 1 frame; for T < S (pathological) starts stay non-decreasing."""
-    from jiao_liao_speech_recognition_tpu.decode.align import dtw_spans
+    from jiao_liao_asr.decode.align import dtw_spans
 
     rng = np.random.RandomState(seed)
     S = rng.randint(1, 12)
@@ -171,9 +170,9 @@ def test_dtw_spans_always_valid(seed):
 
 
 def _whisper_bundle(chunk_seconds=0.64):
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import (
         ExperimentConfig,
         WhisperConfig,
     )
@@ -186,8 +185,7 @@ def _whisper_bundle(chunk_seconds=0.64):
             vocab_size=96, d_model=64, encoder_layers=1, decoder_layers=2,
             num_heads=2, mlp_dim=128, max_source_positions=src,
             max_target_positions=16, prompt_ids=(1, 3), eot_id=2,
-            dtype="float32", use_flash_attention=False,
-        ),
+            dtype="float32", ),
     )
     cfg.frontend.chunk_seconds = chunk_seconds
     cfg.decode.max_decode_len = 12
@@ -222,10 +220,10 @@ def test_whisper_alignment_heads_select_subset():
 
     import jax.numpy as jnp
 
-    from jiao_liao_speech_recognition_tpu.decode.align import (
+    from jiao_liao_asr.decode.align import (
         cross_attention_matrix,
     )
-    from jiao_liao_speech_recognition_tpu.frontend import features
+    from jiao_liao_asr.frontend import features
 
     bundle = _whisper_bundle()
     fe = bundle.config.frontend
@@ -255,7 +253,7 @@ def test_hf_alignment_heads_roundtrip(tmp_path):
     import dataclasses
     import json as _json
 
-    from jiao_liao_speech_recognition_tpu.models.whisper_import import (
+    from jiao_liao_asr.models.whisper_import import (
         load_hf_generation_constraints,
     )
 
@@ -266,7 +264,7 @@ def test_hf_alignment_heads_roundtrip(tmp_path):
     gc = load_hf_generation_constraints(tmp_path)
     assert gc["alignment_heads"] == ((0, 1), (1, 0))
 
-    from jiao_liao_speech_recognition_tpu.models.whisper_import import (
+    from jiao_liao_asr.models.whisper_import import (
         export_hf_checkpoint,
     )
 
@@ -283,13 +281,13 @@ def test_hf_alignment_heads_roundtrip(tmp_path):
     assert data["alignment_heads"] == [[0, 1], [1, 0]]
 
     # config YAML roundtrip keeps the pairs iterable (saved checkpoints)
-    from jiao_liao_speech_recognition_tpu.utils.config import (
-        load_yaml,
-        save_yaml,
+    from jiao_liao_asr.utils.config import (
+        load_config,
+        save_config,
     )
 
-    save_yaml(cfg, str(tmp_path / "cfg.yaml"))
-    back = load_yaml(str(tmp_path / "cfg.yaml"))
+    save_config(cfg, str(tmp_path / "cfg.json"))
+    back = load_config(str(tmp_path / "cfg.json"))
     assert [tuple(p) for p in back.whisper.alignment_heads] == [(0, 1), (1, 0)]
 
 
@@ -299,9 +297,9 @@ def test_whisper_timed_with_wf_adapter():
     adapter's contribution included — text still matches transcribe."""
     import dataclasses
 
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import AdapterConfig
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import AdapterConfig
 
     base = _whisper_bundle()
     cfg = dataclasses.replace(

@@ -9,18 +9,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-from jiao_liao_speech_recognition_tpu.parallel.mesh import (
+from jiao_liao_asr.models.bundle import ModelBundle
+from jiao_liao_asr.parallel.mesh import (
     batch_sharding,
     build_mesh,
     replicated,
 )
-from jiao_liao_speech_recognition_tpu.parallel.tp_rules import tp_param_sharding
-from jiao_liao_speech_recognition_tpu.train.engine import (
+from jiao_liao_asr.parallel.tp_rules import tp_param_sharding
+from jiao_liao_asr.train.engine import (
     build_train_setup,
     init_state,
 )
-from jiao_liao_speech_recognition_tpu.utils.config import (
+from jiao_liao_asr.utils.config import (
     ExperimentConfig,
     MeshConfig,
     OptimizerConfig,
@@ -37,15 +37,15 @@ CFG = ExperimentConfig(
     whisper=WhisperConfig(
         vocab_size=64, d_model=64, encoder_layers=1, decoder_layers=1,
         num_heads=4, mlp_dim=128, max_target_positions=32, dtype="float32",
-        use_flash_attention=False, max_source_positions=64,
+        max_source_positions=64,
     ),
     specaugment=SpecAugmentConfig(enabled=False),
 )
 
 
 def _batch(rng, B=8, samples=8000, V=64, S=5):
-    from jiao_liao_speech_recognition_tpu.data.pipeline import Batch
-    from jiao_liao_speech_recognition_tpu.train.engine import batch_to_device
+    from jiao_liao_asr.data.pipeline import Batch
+    from jiao_liao_asr.train.engine import batch_to_device
 
     host = Batch(
         audio=rng.randn(B, samples).astype(np.float32) * 0.1,
@@ -113,15 +113,15 @@ def test_tp_greedy_decode_matches_single_device(rng):
     the same tokens as unsharded decode: params sharded over 'model' +
     'fsdp', inputs over 'data', XLA propagates through the KV-cached
     while_loop."""
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import (
+    from jiao_liao_asr.decode.whisper_generate import (
         greedy_generate,
     )
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
-    from jiao_liao_speech_recognition_tpu.parallel.mesh import (
+    from jiao_liao_asr.models.whisper import WhisperModel
+    from jiao_liao_asr.parallel.mesh import (
         build_mesh,
         shard_batch,
     )
-    from jiao_liao_speech_recognition_tpu.parallel.tp_rules import (
+    from jiao_liao_asr.parallel.tp_rules import (
         fsdp_tp_sharding,
     )
 
@@ -153,8 +153,8 @@ def test_bundle_sharded_transcribe_matches_unsharded(tmp_path, rng):
     transcribe path returns the same texts as unsharded."""
     import dataclasses as dc
 
-    from jiao_liao_speech_recognition_tpu.frontend.audio_io import write_wav
-    from jiao_liao_speech_recognition_tpu.parallel.mesh import build_mesh
+    from jiao_liao_asr.frontend.audio_io import write_wav
+    from jiao_liao_asr.parallel.mesh import build_mesh
 
     cfg = dc.replace(CFG)
     cfg.frontend = dc.replace(cfg.frontend, chunk_seconds=0.5)
@@ -164,7 +164,7 @@ def test_bundle_sharded_transcribe_matches_unsharded(tmp_path, rng):
     p = tmp_path / "u.wav"
     write_wav(str(p), wav, 16000)
 
-    from jiao_liao_speech_recognition_tpu.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
 
     tok = CharTokenizer.build(["abc def"])
     params = ModelBundle._init_params(cfg)
@@ -179,6 +179,32 @@ def test_bundle_sharded_transcribe_matches_unsharded(tmp_path, rng):
     assert t1 == t2
 
 
+@pytest.mark.parametrize("entry", ["transcribe", "transcribe_timed"])
+def test_bundle_sharded_entry_points_attend_per_shard(entry, rng):
+    """A sharded bundle's entry points trace under its mesh: every attention
+    call runs on one device's block (batch over data x fsdp, heads over
+    model) and the result is that of the unsharded bundle."""
+    import dataclasses as dc
+
+    from jiao_liao_asr.data.tokenizer import CharTokenizer
+    from jiao_liao_asr.models import layers
+
+    cfg = dc.replace(CFG)
+    cfg.frontend = dc.replace(cfg.frontend, chunk_seconds=0.5)
+    wavs = [(0.2 * np.sin(2 * np.pi * f * np.arange(8000) / 16000)).astype(np.float32)
+            for f in (200, 300, 450, 600)]
+    tok = CharTokenizer.build(["abc def"])
+    params = ModelBundle._init_params(cfg)
+    want = getattr(ModelBundle(config=cfg, params=params, tokenizer=tok), entry)(wavs, 16000)
+    b = ModelBundle(config=cfg, params=params, tokenizer=tok)
+    b.shard(build_mesh(MeshConfig(data_axis=2, fsdp_axis=2, model_axis=2), jax.devices()))
+    with layers.record_attention_choices() as seen:
+        got = getattr(b, entry)(wavs, 16000)
+    assert got == want
+    H = cfg.whisper.num_heads
+    assert seen and {(c[1][0], c[1][2]) for c in seen} == {(1, H // 2)}
+
+
 def test_opt_state_tp_sharding_through_production_entry():
     """parallel.mesh.opt_state_sharding (what train_loop's shard_state
     uses) applies the Megatron TP rules to Adam mu/nu on a model-axis>1
@@ -186,11 +212,11 @@ def test_opt_state_tp_sharding_through_production_entry():
     an adapters-only masked optimizer in the tree."""
     import dataclasses as dc
 
-    from jiao_liao_speech_recognition_tpu.parallel.mesh import (
+    from jiao_liao_asr.parallel.mesh import (
         opt_state_sharding,
         param_sharding,
     )
-    from jiao_liao_speech_recognition_tpu.utils.config import AdapterConfig
+    from jiao_liao_asr.utils.config import AdapterConfig
 
     mesh = build_mesh(MeshConfig(data_axis=2, fsdp_axis=2, model_axis=2),
                       jax.devices())

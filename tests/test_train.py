@@ -10,7 +10,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.train.engine import (
+from jiao_liao_asr.train.engine import (
     adapter_mask,
     batch_to_device,
     build_train_setup,
@@ -18,8 +18,8 @@ from jiao_liao_speech_recognition_tpu.train.engine import (
     make_optimizer,
     make_schedule,
 )
-from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-from jiao_liao_speech_recognition_tpu.utils.config import (
+from jiao_liao_asr.models.bundle import ModelBundle
+from jiao_liao_asr.utils.config import (
     AdapterConfig,
     CTCModelConfig,
     ExperimentConfig,
@@ -31,7 +31,7 @@ TINY_EXP = ExperimentConfig(
     model_family="ctc",
     ctc_model=CTCModelConfig(
         vocab_size=32, d_model=64, num_layers=2, num_heads=4, mlp_dim=128,
-        conv_channels=32, dtype="float32", use_flash_attention=False, dropout=0.0,
+        conv_channels=32, dtype="float32", dropout=0.0,
     ),
     specaugment=SpecAugmentConfig(enabled=False),
 )
@@ -156,7 +156,7 @@ def test_schedules_shapes():
 
 
 def test_checkpoint_roundtrip(tmp_path, rng):
-    from jiao_liao_speech_recognition_tpu.train.checkpoints import (
+    from jiao_liao_asr.train.checkpoints import (
         TrainCheckpointer,
         load_adapter_only,
         save_adapter_only,

@@ -7,7 +7,7 @@ import math
 import numpy as np
 import pytest
 
-from jiao_liao_speech_recognition_tpu.data.unigram import (
+from jiao_liao_asr.data.unigram import (
     _UNK_PENALTY,
     UnigramTokenizer,
 )
@@ -95,15 +95,15 @@ def test_sp_vocab_tsv_roundtrip(tmp_path):
 def test_pipeline_and_bundle_wiring(tmp_path):
     """data.unigram_vocab routes build_tokenizer_for to the unigram vocab
     and sizes the CTC head; bundle save/load restores the same tokenizer."""
-    from jiao_liao_speech_recognition_tpu.data.manifest import (
+    from jiao_liao_asr.data.manifest import (
         Manifest,
         ManifestRow,
     )
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.train.engine import (
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.train.engine import (
         build_tokenizer_for,
     )
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.utils.config import (
         CTCModelConfig,
         ExperimentConfig,
     )
@@ -117,8 +117,7 @@ def test_pipeline_and_bundle_wiring(tmp_path):
         model_family="ctc",
         ctc_model=CTCModelConfig(
             vocab_size=8, d_model=32, num_layers=1, num_heads=2, mlp_dim=64,
-            conv_channels=8, use_flash_attention=False,
-        ),
+            conv_channels=8, ),
     )
     config.data.unigram_vocab = str(vp)
     manifest = Manifest([ManifestRow(audio="x.wav", text=t) for t in texts])

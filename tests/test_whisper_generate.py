@@ -7,14 +7,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.decode.whisper_generate import greedy_generate
-from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
-from jiao_liao_speech_recognition_tpu.utils.config import WhisperConfig
+from jiao_liao_asr.decode.whisper_generate import greedy_generate
+from jiao_liao_asr.models.whisper import WhisperModel
+from jiao_liao_asr.utils.config import WhisperConfig
 
 CFG = WhisperConfig(
     vocab_size=50, d_model=64, encoder_layers=2, decoder_layers=2,
     num_heads=4, mlp_dim=128, max_target_positions=24, dtype="float32",
-    use_flash_attention=False,
 )
 EOT = 2
 PROMPT = (1, 3)
@@ -83,7 +82,7 @@ def test_generate_stops_at_eot_and_pads(model_and_params, rng):
 
 
 def test_beam_size_one_matches_greedy(model_and_params, rng):
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import beam_generate
+    from jiao_liao_asr.decode.whisper_generate import beam_generate
 
     model, params = model_and_params
     mel = jnp.asarray(rng.randn(2, 80, 60).astype(np.float32) * 0.3)
@@ -99,7 +98,7 @@ def test_beam_size_one_matches_greedy(model_and_params, rng):
 
 def test_beam_score_not_worse_than_greedy(model_and_params, rng):
     """Beam-4's chosen sequence must score >= greedy's under the model."""
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import beam_generate
+    from jiao_liao_asr.decode.whisper_generate import beam_generate
 
     model, params = model_and_params
     mel = jnp.asarray(rng.randn(1, 80, 60).astype(np.float32) * 0.5)
@@ -147,9 +146,9 @@ def test_generate_strategy_matrix(model_and_params, rng):
     """'beam_device' works for whisper and unknown strategies error loudly."""
     import dataclasses
 
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import generate
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.utils.config import (
+    from jiao_liao_asr.decode.whisper_generate import generate
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.utils.config import (
         DecodeConfig, ExperimentConfig,
     )
 
@@ -168,7 +167,7 @@ def test_generate_strategy_matrix(model_and_params, rng):
 def test_head_major_cache_layout_matches_packed(model_and_params, rng, monkeypatch):
     """Decode with head-major [B,H,T,dh] caches (batch >= the layout
     threshold) produces identical tokens to the packed [B,T,d] layout."""
-    from jiao_liao_speech_recognition_tpu.models import layers as L
+    from jiao_liao_asr.models import layers as L
 
     model, params = model_and_params
     B, max_len = 4, 12

@@ -1,20 +1,20 @@
 """Whisper weight import parity (SURVEY.md §7 step 8): build a random
 transformers WhisperForConditionalGeneration locally (no network), export to
-safetensors, import into the Flax model, and check logits match torch."""
+safetensors, import into the model, and check logits match torch."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
-from jiao_liao_speech_recognition_tpu.models.whisper_import import (
+from jiao_liao_asr.models.whisper import WhisperModel
+from jiao_liao_asr.models.whisper_import import (
     hf_state_dict_to_flax,
     load_hf_whisper,
     read_safetensors,
     write_safetensors,
 )
-from jiao_liao_speech_recognition_tpu.utils.config import WhisperConfig
+from jiao_liao_asr.utils.config import WhisperConfig
 
 
 def test_safetensors_roundtrip(tmp_path, rng):
@@ -80,8 +80,7 @@ def test_whisper_import_logit_parity(hf_whisper, rng):
     cfg = WhisperConfig(
         vocab_size=200, num_mels=80, d_model=64, encoder_layers=2,
         decoder_layers=2, num_heads=4, mlp_dim=128, max_source_positions=150,
-        max_target_positions=32, dtype="float32", use_flash_attention=False,
-    )
+        max_target_positions=32, dtype="float32", )
     params = load_hf_whisper(ckpt_dir, cfg)
 
     mel = rng.randn(1, 80, 300).astype(np.float32) * 0.5
@@ -115,15 +114,14 @@ def test_generate_token_parity_with_transformers(hf_whisper, rng):
     torch = pytest.importorskip("torch")
     import jax
 
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import greedy_generate
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
+    from jiao_liao_asr.decode.whisper_generate import greedy_generate
+    from jiao_liao_asr.models.whisper import WhisperModel
 
     model_t, hf_cfg, ckpt_dir = hf_whisper
     cfg = WhisperConfig(
         vocab_size=200, num_mels=80, d_model=64, encoder_layers=2,
         decoder_layers=2, num_heads=4, mlp_dim=128, max_source_positions=150,
-        max_target_positions=32, dtype="float32", use_flash_attention=False,
-    )
+        max_target_positions=32, dtype="float32", )
     params = load_hf_whisper(ckpt_dir, cfg)
 
     mel = rng.randn(2, 80, 300).astype(np.float32) * 0.5
@@ -161,15 +159,14 @@ def test_generate_parity_with_hf_suppression(hf_whisper, rng):
     torch = pytest.importorskip("torch")
     import jax
 
-    from jiao_liao_speech_recognition_tpu.decode.whisper_generate import greedy_generate
-    from jiao_liao_speech_recognition_tpu.models.whisper import WhisperModel
+    from jiao_liao_asr.decode.whisper_generate import greedy_generate
+    from jiao_liao_asr.models.whisper import WhisperModel
 
     model_t, hf_cfg, ckpt_dir = hf_whisper
     cfg = WhisperConfig(
         vocab_size=200, num_mels=80, d_model=64, encoder_layers=2,
         decoder_layers=2, num_heads=4, mlp_dim=128, max_source_positions=150,
-        max_target_positions=32, dtype="float32", use_flash_attention=False,
-    )
+        max_target_positions=32, dtype="float32", )
     params = load_hf_whisper(ckpt_dir, cfg)
     mel = rng.randn(1, 80, 300).astype(np.float32) * 0.5
     max_new = 10
@@ -219,7 +216,7 @@ def test_generate_parity_with_hf_suppression(hf_whisper, rng):
 def test_load_hf_generation_constraints(tmp_path):
     import json as _json
 
-    from jiao_liao_speech_recognition_tpu.models.whisper_import import (
+    from jiao_liao_asr.models.whisper_import import (
         load_hf_generation_constraints,
     )
 
@@ -244,8 +241,8 @@ def test_import_hf_checkpoint_cli_roundtrip(hf_whisper, tmp_path):
     import jax
     import numpy as np
 
-    from jiao_liao_speech_recognition_tpu.models.bundle import ModelBundle
-    from jiao_liao_speech_recognition_tpu.models.whisper_import import (
+    from jiao_liao_asr.models.bundle import ModelBundle
+    from jiao_liao_asr.models.whisper_import import (
         import_hf_checkpoint,
         whisper_config_from_hf,
     )
@@ -261,7 +258,7 @@ def test_import_hf_checkpoint_cli_roundtrip(hf_whisper, tmp_path):
 
     out = tmp_path / "bundle"
     bundle = import_hf_checkpoint(ckpt_dir, out)
-    assert (out / "config.yaml").exists()
+    assert (out / "config.json").exists()
 
     loaded = ModelBundle.load(checkpoint=str(out))
     assert loaded.config.model_family == "whisper"
@@ -280,7 +277,7 @@ def test_export_hf_checkpoint_roundtrip_and_transformers_load(hf_whisper, tmp_pa
     torch = pytest.importorskip("torch")
     from transformers import WhisperForConditionalGeneration
 
-    from jiao_liao_speech_recognition_tpu.models.whisper_import import (
+    from jiao_liao_asr.models.whisper_import import (
         export_hf_checkpoint,
         import_hf_checkpoint,
     )
